@@ -1,0 +1,430 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, one JSON line each; any failure ends the run with a non-zero exit:
+
+1. environment: torch, the card, its power limit, the TF32 flags (both off);
+2. build: compiles ``deephall_tpu_torch/csrc/*.cu`` (one nvcc each, in parallel);
+3. kernels: every kernel against its plain PyTorch version at the production
+   shapes (B=3360 walkers, T=6, D=256, H=4) in both jet modes, (C, E) = (15, 3)
+   with L^2 and (13, 1) without, with each one's time, its plain version's
+   time and its bound;
+4. slice: the inference CLI on the converged N=6 checkpoint
+   (``artifacts/prod_r4``), 20 iterations at batch 3360 with L^2 on and the
+   bf16 sweep; the mean energy must lie within 0.005 of 6.8681 and each
+   kernel's launch count must match the iterations;
+5. end to end: local energy and observables of the 3360 stored walkers through
+   the kernels and through the plain versions, on the card; the batch means
+   and the median walker must agree to 1e-4 of each observable's RMS.
+
+The line before the last is the kernel table; the last line is
+``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+REPO = Path(__file__).resolve().parent
+BATCH, TOKENS, FEAT, HEADS = 3360, 6, 256, 4
+MODES = ((15, 3), (13, 1))  # (C, E): L^2 mode, lean mode
+KERNEL_TOL = 2e-5  # max |kernel - plain| / max |plain| per output field
+END_TO_END_TOL = 1e-4
+ANCHOR_ENERGY, ANCHOR_TOL = 6.8681, 0.005
+ITERATIONS = 20
+
+# Memory rate (bytes/s) and float32 CUDA-core rate (flop/s) by card, from
+# NVIDIA's data sheets; the first match in the device name wins.
+PEAKS = (
+    ("H100 PCIe", 2.0e12, 51e12),
+    ("H100 NVL", 3.9e12, 60e12),
+    ("H200", 4.8e12, 67e12),
+    ("H100", 3.35e12, 67e12),
+)
+
+
+def emit(**fields) -> None:
+    print(json.dumps(fields), flush=True)
+
+
+def peaks(name: str) -> tuple[float, float]:
+    for key, bandwidth, flops in PEAKS:
+        if key in name:
+            return bandwidth, flops
+    raise RuntimeError(f"no peak rates known for {name}")
+
+
+def bound(nbytes: float, flops: float, rates) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / rates[0] * 1e3, flops / rates[1] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Median of CUDA-event timings of ``fn`` after warm-up, in ms."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def field_error(got, want) -> tuple[float, float]:
+    """(max abs error, max abs error / max abs value) over one output field."""
+    err = (got - want).abs().max().item()
+    return err, err / max(want.abs().max().item(), 1e-30)
+
+
+def compare(name: str, got, want, tol: float) -> float:
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    worst_abs, worst_rel = 0.0, 0.0
+    for a, b in zip(got, want):
+        err, rel = field_error(a, b)
+        worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+    if not worst_rel <= tol:
+        raise AssertionError(f"{name}: relative error {worst_rel:.3e} > {tol:.0e}")
+    return worst_abs
+
+
+def random_jet(gen, c, e, device):
+    from deephall_tpu_torch.ops.fwdlap import Jet
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    s = (BATCH, TOKENS, FEAT)
+    return Jet(normal(*s), normal(c, *s), normal(*s), normal(e, *s))
+
+
+def attention_params(gen, device):
+    """Weights scaled as the JAX package's jet-attention test does."""
+    dh = FEAT // HEADS
+
+    def normal(*shape, scale):
+        return torch.randn(shape, generator=gen, device=device) * scale
+
+    p = {
+        name: {
+            "kernel": normal(FEAT, HEADS, dh, scale=1 / math.sqrt(FEAT)),
+            "bias": normal(HEADS, dh, scale=0.1),
+        }
+        for name in ("query", "key", "value")
+    }
+    p["out"] = {
+        "kernel": normal(HEADS, dh, FEAT, scale=1 / math.sqrt(FEAT)),
+        "bias": normal(FEAT, scale=0.1),
+    }
+    return p
+
+
+def phase_kernels(device, rates) -> dict:
+    """Each kernel against its plain version at production shapes, both modes."""
+    from deephall_tpu_torch.ops import jet_attention as ja
+    from deephall_tpu_torch.ops import jet_layernorm as jl
+
+    results = {}
+    for c, e in MODES:
+        gen = torch.Generator(device=device).manual_seed(1000 + c)
+        planes = c + e + 2
+        rows = BATCH * TOKENS
+        elems = planes * rows * FEAT
+        dh = FEAT // HEADS
+        mode = f"C{c}E{e}"
+
+        t = random_jet(gen, c, e, device)
+        r = random_jet(gen, c, e, device)
+        p_ln = {
+            "scale": torch.randn(FEAT, generator=gen, device=device) * 0.3 + 1.0,
+            "bias": torch.randn(FEAT, generator=gen, device=device) * 0.1,
+        }
+        err = compare(
+            f"jet_layernorm {mode}",
+            tuple(jl.layernorm_jet(p_ln, t, residual=r)),
+            tuple(jl.layernorm_jet_plain(p_ln, t, residual=r)),
+            KERNEL_TOL,
+        )
+        # Read the jet and the residual, write the output; about a dozen flops
+        # per element (add, centre, variance products, output expansion).
+        ln_bound = bound(3 * elems * 4 + 2 * FEAT * 4, 12 * elems, rates)
+        results[("jet_layernorm", mode)] = dict(
+            max_abs_err=err,
+            ms=cuda_ms(lambda: jl.layernorm_jet(p_ln, t, residual=r)),
+            plain_ms=cuda_ms(lambda: jl.layernorm_jet_plain(p_ln, t, residual=r), reps=5),
+            bound_ms=ln_bound[0], bound_by=ln_bound[1], library_ms=None,
+        )
+        del r
+
+        p = attention_params(gen, device)
+        # Dot products of dh terms per (walker, head, query, source) in the
+        # logits and in the value contraction: 1 for x, 2 per tangent, 2 + lap
+        # for l, 3 per extra.
+        core_flops = 2 * 2 * dh * TOKENS**2 * BATCH * HEADS * (1 + 2 * c + 2 + (c - e) + 3 * e)
+        proj_flops = 4 * 2 * elems * FEAT
+        err = compare(
+            f"jet_attention {mode}",
+            tuple(ja.attention_jet(p, HEADS, t)),
+            tuple(ja.attention_jet_plain(p, HEADS, t)),
+            KERNEL_TOL,
+        )
+        att_bound = bound(2 * elems * 4 + 4 * (FEAT * FEAT + FEAT) * 4, proj_flops + core_flops, rates)
+        results[("jet_attention", mode)] = dict(
+            max_abs_err=err,
+            ms=cuda_ms(lambda: ja.attention_jet(p, HEADS, t)),
+            plain_ms=cuda_ms(lambda: ja.attention_jet_plain(p, HEADS, t), reps=5),
+            bound_ms=att_bound[0], bound_by=att_bound[1], library_ms=None,
+        )
+
+        stacked = torch.cat([t.x[None], t.j, t.l[None], t.d]).reshape(planes * rows, FEAT)
+        del t
+        w = torch.randn(FEAT, 3 * FEAT, generator=gen, device=device) / math.sqrt(FEAT)
+        b = torch.randn(3 * FEAT, generator=gen, device=device) * 0.1
+        qkv = ja.jet_gemm(stacked, w, b, rows)
+        err = compare(f"jet_gemm {mode}", qkv, ja.jet_gemm_plain(stacked, w, b, rows), KERNEL_TOL)
+        m = planes * rows
+        gemm_bound = bound((m * FEAT + FEAT * 3 * FEAT + 3 * FEAT + m * 3 * FEAT) * 4,
+                           2 * m * FEAT * 3 * FEAT, rates)
+        results[("jet_gemm", mode)] = dict(
+            max_abs_err=err,
+            ms=cuda_ms(lambda: ja.jet_gemm(stacked, w, b, rows)),
+            plain_ms=cuda_ms(lambda: ja.jet_gemm_plain(stacked, w, b, rows)),
+            bound_ms=gemm_bound[0], bound_by=gemm_bound[1],
+            library_ms=cuda_ms(lambda: torch.matmul(stacked, w)),
+        )
+        del stacked
+
+        err = compare(
+            f"jet_softmax_values {mode}",
+            ja.softmax_values(qkv, BATCH, TOKENS, HEADS, c, e),
+            ja.softmax_values_plain(qkv, BATCH, TOKENS, HEADS, c, e),
+            KERNEL_TOL,
+        )
+        sv_bound = bound(4 * elems * 4, core_flops, rates)
+        results[("jet_softmax_values", mode)] = dict(
+            max_abs_err=err,
+            ms=cuda_ms(lambda: ja.softmax_values(qkv, BATCH, TOKENS, HEADS, c, e)),
+            plain_ms=cuda_ms(lambda: ja.softmax_values_plain(qkv, BATCH, TOKENS, HEADS, c, e), reps=5),
+            bound_ms=sv_bound[0], bound_by=sv_bound[1], library_ms=None,
+        )
+        del qkv
+        torch.cuda.empty_cache()
+        for (name, mode_), row in results.items():
+            if mode_ == mode:
+                emit(phase="kernel", kernel=name, mode=mode, **row)
+    return results
+
+
+def launch_counts() -> dict:
+    from deephall_tpu_torch.ops import jet_attention as ja
+    from deephall_tpu_torch.ops import jet_layernorm as jl
+
+    return {
+        "jet_layernorm": jl.layernorm_jet.launches,
+        "jet_attention": ja.attention_jet.launches,
+        "jet_gemm": ja.jet_gemm.launches,
+        "jet_softmax_values": ja.softmax_values.launches,
+    }
+
+
+def reset_counts() -> None:
+    from deephall_tpu_torch.ops import jet_attention as ja
+    from deephall_tpu_torch.ops import jet_layernorm as jl
+
+    for fn in (jl.layernorm_jet, ja.attention_jet, ja.jet_gemm, ja.softmax_values):
+        fn.launches = 0
+
+
+def phase_slice(workdir: Path) -> dict:
+    """Inference of the converged N=6 state through the CLI, at batch 3360."""
+    from deephall_tpu_torch import train
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    history = train.cli([
+        "--yml", str(REPO / "artifacts/prod_r4/config.yml"),
+        "optim.optimizer=none",
+        f"log.restore_path={REPO / 'artifacts/prod_r4/ckpt_019999.npz'}",
+        f"log.save_path={workdir}",
+        f"optim.iterations={ITERATIONS}",
+        "mcmc.burn_in=10",
+    ])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    counts = launch_counts()
+
+    energies = np.array([row["energy"].real for row in history])
+    l_square = np.array([row["angular_momentum_square"] for row in history])
+    step_times = [row["step_time"] for row in history]
+    layers = 2
+    calls = ITERATIONS + 1  # the iterations and the initial-energy probe
+    expected = {
+        "jet_layernorm": calls * 2 * layers,
+        "jet_attention": calls * layers,
+        "jet_gemm": calls * 2 * layers,
+        "jet_softmax_values": calls * layers,
+    }
+    result = dict(
+        iterations=len(history),
+        mean_energy=float(energies.mean()),
+        energy_sem=float(energies.std(ddof=1) / math.sqrt(len(energies))),
+        mean_l_square=float(l_square.mean()),
+        mean_variance=float(np.mean([row["variance"] for row in history])),
+        mean_pmove=float(np.mean([row["pmove"] for row in history])),
+        step_time_median_s=statistics.median(step_times),
+        step_times_s=step_times,
+        wall_s=wall,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches=counts,
+        expected_launches=expected,
+    )
+    emit(phase="slice", **result)
+    if len(history) != ITERATIONS or np.isnan(energies).any():
+        raise AssertionError("slice: missing iterations or NaN energy")
+    if abs(result["mean_energy"] - ANCHOR_ENERGY) > ANCHOR_TOL:
+        raise AssertionError(f"slice: mean energy {result['mean_energy']} not within {ANCHOR_TOL} of {ANCHOR_ENERGY}")
+    if not result["mean_l_square"] < 0.2:
+        raise AssertionError(f"slice: mean L^2 {result['mean_l_square']} >= 0.2")
+    if counts != expected:
+        raise AssertionError(f"slice: launch counts {counts} != expected {expected}")
+    return counts
+
+
+def phase_end_to_end(device) -> None:
+    """Observables of the stored walkers through the kernels and the plain versions."""
+    import yaml
+
+    from deephall_tpu_torch import mcmc, train
+    from deephall_tpu_torch.config import Config
+    from deephall_tpu_torch.hamiltonian import forward_laplacian_local_energy
+    from deephall_tpu_torch.log import LogManager
+    from deephall_tpu_torch.networks import make_network
+    from deephall_tpu_torch.weights import load_flax
+
+    cfg = Config.from_dict(yaml.safe_load((REPO / "artifacts/prod_r4/config.yml").read_text()))
+    _, state, _ = LogManager.restore_checkpoint(REPO / "artifacts/prod_r4/ckpt_019999.npz")
+    model = make_network(cfg.system, cfg.network)
+    load_flax(model, state.params)
+    model.to(device).requires_grad_(False)
+    data = torch.as_tensor(state.data, device=device)
+    local_energy = {
+        kernels: forward_laplacian_local_energy(model, cfg.system, kernels=kernels)
+        for kernels in (True, False)
+    }
+    sweep = mcmc.make_mcmc_step(lambda x: model(x, train.sweep_dtype()), steps=cfg.mcmc.steps)
+    gen = torch.Generator(device=device).manual_seed(0)
+    out, timing = {}, {}
+    with torch.no_grad():
+        for kernels, fn in local_energy.items():
+            el, obs = fn(data)
+            out[kernels] = {"energy": el, **obs}
+        # Where an iteration's time goes: the local energy on each path, and
+        # one sweep of cfg.mcmc.steps moves.
+        timing["local_energy_kernels_ms"] = cuda_ms(lambda: local_energy[True](data), reps=5)
+        timing["local_energy_plain_ms"] = cuda_ms(lambda: local_energy[False](data), reps=5)
+        timing["sweep_ms"] = cuda_ms(lambda: sweep(data, float(state.mcmc_width), gen), reps=5)
+    # A walker near a node or a pole amplifies float32 rounding in its second
+    # derivatives by the conditioning of its orbital matrix, on either path, so
+    # single walkers may differ by far more than the kernels do (measured on
+    # the H100: one walker's L^2 of ~16 moved by 0.25).  The gate therefore
+    # reads the batch: the shift of the batch mean and the median per-walker
+    # deviation, each relative to the observable's RMS over the walkers.
+    report = {}
+    for key, got in out[True].items():
+        want = out[False][key]
+        got, want = got.real.double(), want.real.double()
+        rms = want.square().mean().sqrt().item()
+        dev = (got - want).abs()
+        report[key] = dict(
+            mean_kernel=got.mean().item(), mean_plain=want.mean().item(), rms=rms,
+            mean_shift_rel=abs(got.mean().item() - want.mean().item()) / rms,
+            median_dev_rel=dev.median().item() / rms,
+            p99_dev_rel=dev.quantile(0.99).item() / rms,
+            max_abs_err=dev.max().item(),
+        )
+    emit(phase="end_to_end", walkers=int(data.shape[0]), tolerance=END_TO_END_TOL,
+         fields=report, **timing)
+    bad = [
+        k for k, v in report.items()
+        if not (v["mean_shift_rel"] <= END_TO_END_TOL and v["median_dev_rel"] <= END_TO_END_TOL)
+    ]
+    if bad:
+        raise AssertionError(f"end_to_end: {bad} differ by more than {END_TO_END_TOL}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO))
+    from deephall_tpu_torch import train  # noqa: F401  (switches TF32 off)
+    from deephall_tpu_torch.ops import _build
+
+    device = torch.device("cuda", 0)
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    emit(
+        phase="environment", torch=torch.__version__, cuda=torch.version.cuda,
+        device=name, count=torch.cuda.device_count(), nvidia_smi=smi,
+        tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
+        tf32_cudnn=torch.backends.cudnn.allow_tf32,
+    )
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 is on")
+    rates = peaks(name)
+
+    start = time.perf_counter()
+    libraries = _build.build()
+    ptxas = {
+        lib: [line.strip() for line in Path(f"{path}.log").read_text().splitlines()
+              if "registers" in line or "spill" in line]
+        for lib, path in libraries.items() if Path(f"{path}.log").exists()
+    }
+    emit(phase="build", seconds=time.perf_counter() - start, libraries=sorted(libraries), ptxas=ptxas)
+
+    kernels = phase_kernels(device, rates)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
+        counts = phase_slice(Path(workdir))
+    phase_end_to_end(device)
+
+    sources = {
+        "jet_layernorm": ("deephall_tpu_torch/csrc/jet_layernorm.cu", "deephall_tpu/ops/jet_layernorm.py:58"),
+        "jet_attention": ("deephall_tpu_torch/csrc/jet_attention.cu", "deephall_tpu/ops/jet_attention.py:93"),
+        "jet_gemm": ("deephall_tpu_torch/csrc/jet_attention.cu", "deephall_tpu/ops/jet_attention.py:116"),
+        "jet_softmax_values": ("deephall_tpu_torch/csrc/jet_attention.cu", "deephall_tpu/ops/jet_attention.py:142"),
+    }
+    table = []
+    for kernel, (source, replaces) in sources.items():
+        row = kernels[(kernel, f"C{MODES[0][0]}E{MODES[0][1]}")]
+        table.append(dict(name=kernel, route="cuda", source=source, replaces=replaces,
+                          launches=counts[kernel], **row))
+    print(smi, flush=True)
+    emit(kernels=table)
+    emit(ok=True, device={"platform": "gpu", "kind": name, "count": torch.cuda.device_count()})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,225 @@
+"""Run management: checkpoints, CSV stats, config audit (port of ``deephall_tpu/log.py``).
+
+The files are those of the JAX package, byte for byte in layout:
+
+* ``ckpt_{step:06d}.npz`` (compressed) with ``step``, ``params`` (the pickled
+  flax parameter tree of NumPy arrays), ``data`` ``[batch, nelec, 2]``,
+  ``opt_state`` (pickled), ``mcmc_width`` and the width-adaptation extras
+  ``pmoves`` and ``t``;
+* ``train_stats.csv`` with a header on creation and a mirrored line on stderr;
+* a ``config.yml`` sidecar stamped with the git commit.
+
+Restoring never unpickles ``opt_state``: a JAX checkpoint pickles the JAX
+package's KFAC state there, and unpickling it would import that package and
+JAX.  ``params`` is unpickled by :class:`_NumpyUnpickler`, which refuses every
+class outside NumPy and the builtins.  Paths are local.
+"""
+
+from __future__ import annotations
+
+import datetime
+import difflib
+import io
+import logging
+import pickle
+import subprocess
+import sys
+import zipfile
+from collections.abc import Generator
+from contextlib import contextmanager
+from pathlib import Path
+
+import numpy as np
+
+from deephall_tpu_torch.config import Config, to_yaml
+from deephall_tpu_torch.types import CheckpointState
+
+logger = logging.getLogger("deephall")
+
+
+def init_logging() -> None:
+    """Set up the ``deephall`` stderr logger."""
+    logger.setLevel(logging.INFO)
+    logger.handlers.clear()
+    handler = logging.StreamHandler(sys.stderr)
+    handler.setLevel(logging.INFO)
+    logger.addHandler(handler)
+    logger.propagate = False
+
+
+def _object_array(value) -> np.ndarray:
+    arr = np.empty((), dtype=object)
+    arr[()] = value
+    return arr
+
+
+class _NumpyUnpickler(pickle.Unpickler):
+    """Unpickles NumPy arrays and builtin containers, and nothing else."""
+
+    _ALLOWED_PREFIXES = ("numpy.", "builtins.", "collections.")
+
+    def find_class(self, module: str, name: str):
+        full = f"{module}.{name}"
+        if module == "numpy" or full.startswith(self._ALLOWED_PREFIXES):
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(f"refusing to unpickle {full}")
+
+
+def _read_object(zf: zipfile.ZipFile, key: str):
+    """The object stored under ``key`` of an ``.npz``, unpickled restrictively."""
+    with zf.open(f"{key}.npy") as fp:
+        version = np.lib.format.read_magic(fp)
+        if version == (1, 0):
+            np.lib.format.read_array_header_1_0(fp)
+        else:
+            np.lib.format.read_array_header_2_0(fp)
+        arr = _NumpyUnpickler(io.BytesIO(fp.read())).load()
+    return arr.tolist() if isinstance(arr, np.ndarray) else arr
+
+
+class StatsWriter:
+    """CSV stats file with header-on-create, stderr mirroring and force-flush."""
+
+    def __init__(self, stats_path: Path):
+        self.stats_path = Path(stats_path)
+        self.stats_file = None
+        self.hidden_fields: set[str] = set()
+
+    def __enter__(self):
+        exists = self.stats_path.exists()
+        self.should_write_head = not exists or self.stats_path.stat().st_size == 0
+        self.stats_file = self.stats_path.open("a" if exists else "w", buffering=1)
+        return self
+
+    def hide(self, *args):
+        """Hide these fields on stderr while still writing them to the CSV."""
+        self.hidden_fields.update(args)
+
+    def log(self, **kwargs):
+        """Write the key-value pairs to the CSV and a human-readable stderr line."""
+        if self.should_write_head:
+            self.stats_file.write(",".join(kwargs.keys()) + "\n")
+            self.should_write_head = False
+        self.stats_file.write(",".join(kwargs.values()) + "\n")
+        logger.info(
+            ", ".join(f"{k}={v}" for k, v in kwargs.items() if k not in self.hidden_fields)
+        )
+
+    def force_flush(self):
+        self.stats_file.flush()
+
+    def __exit__(self, exc_type, exc_value, traceback):
+        self.stats_file.close()
+        if self.should_write_head:
+            self.stats_path.unlink(missing_ok=True)
+
+
+class LogManager:
+    """Save-dir lifecycle: auto-naming, config audit, checkpoint save/restore."""
+
+    def __init__(self, cfg: Config):
+        if cfg.log.save_path is None:
+            timestamp = datetime.datetime.now().strftime("%Y%m%d_%H:%M:%S")
+            self.save_path = Path(
+                f"DeepHall_n{sum(cfg.system.nspins)}l{cfg.system.flux}_{timestamp}"
+            )
+        else:
+            self.save_path = Path(cfg.log.save_path)
+        if cfg.log.restore_path is None:
+            self.restore_path = self.save_path
+        else:
+            self.restore_path = Path(cfg.log.restore_path)
+            if not self.restore_path.exists():
+                logger.warning("Restore path %s does not exist!", self.restore_path)
+        self.save_path.mkdir(parents=True, exist_ok=True)
+        self.check_config(cfg)
+
+    def check_config(self, cfg: Config) -> None:
+        """Save the current config, diffing against the restored run's config."""
+        restore_config_path = self.restore_path / "config.yml"
+        current = [f"git_commit: {get_git_commit()}\n"]
+        current.extend(to_yaml(cfg).splitlines(keepends=True))
+        original = []
+        if restore_config_path.exists():
+            original = restore_config_path.read_text().splitlines(keepends=True)
+        sys.stderr.writelines(difflib.ndiff(original, current))
+        (self.save_path / "config.yml").write_text("".join(current))
+
+    def save_checkpoint(self, step: int, state: CheckpointState, adapt: dict | None = None):
+        """Save ``ckpt_{step:06d}.npz`` in the JAX package's format.
+
+        ``state.params`` is the flax tree (``weights.params_to_flax``),
+        ``state.data`` a NumPy array or tensor; ``adapt`` holds ``pmoves`` and ``t``.
+        """
+        ckpt_path = self.save_path / f"ckpt_{step:06d}.npz"
+        logger.info("Saving checkpoint %s", ckpt_path)
+        extras = {k: np.asarray(v) for k, v in (adapt or {}).items()}
+        data = state.data
+        if hasattr(data, "detach"):
+            data = data.detach().cpu().numpy()
+        with ckpt_path.open("wb") as f:
+            np.savez_compressed(
+                f,
+                step=step,
+                params=_object_array(state.params),
+                data=np.asarray(data),
+                opt_state=_object_array(state.opt_state),
+                mcmc_width=np.asarray(state.mcmc_width, dtype=np.float32).reshape(()),
+                **extras,
+            )
+
+    def try_restore_checkpoint(self) -> tuple[int, CheckpointState, dict] | None:
+        """Restore the newest readable checkpoint under ``restore_path``, if any."""
+        if not self.restore_path.exists():
+            return None
+        if self.restore_path.is_file():
+            return self.restore_checkpoint(self.restore_path)
+        for ckpt_path in sorted(self.restore_path.glob("ckpt_*.npz"), key=str, reverse=True):
+            try:
+                return self.restore_checkpoint(ckpt_path)
+            except (OSError, ValueError, KeyError, pickle.UnpicklingError, zipfile.BadZipFile) as e:
+                logger.warning("Error restoring checkpoint %s: %s", ckpt_path, e)
+        return None
+
+    @staticmethod
+    def restore_checkpoint(ckpt: str | Path) -> tuple[int, CheckpointState, dict]:
+        """Restore one checkpoint file: ``(next_step, state, adapt)``.
+
+        ``state.opt_state`` is always ``None``: it is never read (see the module
+        docstring).  ``adapt`` holds ``pmoves`` and ``t`` when present.
+        """
+        ckpt_path = Path(ckpt)
+        blob = ckpt_path.read_bytes()
+        with zipfile.ZipFile(io.BytesIO(blob)) as zf:
+            params = _read_object(zf, "params")
+        adapt: dict = {}
+        with np.load(io.BytesIO(blob), allow_pickle=False) as f:
+            step = int(f["step"]) + 1
+            data = np.asarray(f["data"])
+            mcmc_width = np.asarray(f["mcmc_width"]).reshape(()).item()
+            for key in ("pmoves", "t"):
+                if key in f.files:
+                    adapt[key] = np.asarray(f[key])
+        if data.ndim == 4:  # older layouts with a leading device axis
+            data = data.reshape(-1, *data.shape[-2:])
+        logger.info("Restored checkpoint %s", ckpt_path)
+        return step, CheckpointState(params, data, None, np.float32(mcmc_width)), adapt
+
+    @contextmanager
+    def create_writer(self) -> Generator[StatsWriter, None, None]:
+        """A StatsWriter for ``train_stats.csv`` under the save dir."""
+        with StatsWriter(self.save_path / "train_stats.csv") as writer:
+            yield writer
+
+
+def get_git_commit() -> str:
+    """Current short git revision, if available."""
+    try:
+        return subprocess.check_output(
+            ["git", "rev-parse", "--short", "HEAD"],
+            cwd=Path(__file__).parent,
+            text=True,
+            stderr=subprocess.DEVNULL,
+        ).strip()
+    except (subprocess.CalledProcessError, FileNotFoundError):
+        return "''"

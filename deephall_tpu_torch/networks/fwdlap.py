@@ -1,0 +1,216 @@
+"""Forward-Laplacian evaluation of the Psiformer log-wavefunction.
+
+Port of the standard tower of ``deephall_tpu/networks/fwdlap.py:
+psiformer_logpsi_jet``: it mirrors ``networks/psiformer.py`` op for op but
+propagates second-order jets (:mod:`deephall_tpu_torch.ops.fwdlap`) through one
+forward pass.  The jet LayerNorm and jet attention go to the hand-written
+kernels for CUDA tensors and to their plain versions for CPU tensors.
+
+The input functions (features, monopole envelope, Jastrow) are seeded with
+closed-form first and second directional derivatives, where the JAX package
+takes nested ``jax.jvp``.  The Jastrow factor is folded in algebraically:
+``log psi = J + log sum det(Phi)``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from deephall_tpu_torch.config import OrbitalType
+from deephall_tpu_torch.networks.blocks import envelope, envelope_exponents, jastrow_pairs
+from deephall_tpu_torch.networks.psiformer import Psiformer, spin_values
+from deephall_tpu_torch.ops import fwdlap, jet_attention, jet_layernorm
+from deephall_tpu_torch.ops.fwdlap import Jet
+from deephall_tpu_torch.weights import param_tree
+
+
+def _sphere_point(data: torch.Tensor, seeds: torch.Tensor):
+    """Unit vectors ``X [*B, N, 3]`` and their first/second derivatives along ``seeds``.
+
+    ``seeds [K+E, *B, N, 2]`` move each electron by ``(a, b)`` in ``(theta, phi)``:
+    ``D X = X_t a + X_p b`` and ``D^2 X = X_tt a^2 + 2 X_tp a b + X_pp b^2``.
+    """
+    theta, phi = data[..., 0], data[..., 1]
+    st, ct, sp, cp = torch.sin(theta), torch.cos(theta), torch.sin(phi), torch.cos(phi)
+    zero = torch.zeros_like(theta)
+    x = torch.stack([st * cp, st * sp, ct], dim=-1)
+    x_t = torch.stack([ct * cp, ct * sp, -st], dim=-1)
+    x_p = torch.stack([-st * sp, st * cp, zero], dim=-1)
+    x_tp = torch.stack([-ct * sp, ct * cp, zero], dim=-1)
+    x_pp = torch.stack([-st * cp, -st * sp, zero], dim=-1)
+    a, b = seeds[..., 0, None], seeds[..., 1, None]
+    first = x_t * a + x_p * b
+    second = -x * (a * a) + 2 * x_tp * (a * b) + x_pp * (b * b)  # X_tt = -X
+    return x, first, second
+
+
+def input_feature_fn(nspins):
+    """Jets of the input features ``(cos t, sin t cos p, sin t sin p, spin)``."""
+
+    def fn(data, seeds):
+        x, first, second = _sphere_point(data, seeds)
+        spins = torch.tensor(spin_values(nspins), dtype=data.dtype, device=data.device)
+        spins = torch.broadcast_to(spins, data.shape[:-1])[..., None]
+        order = [2, 0, 1]  # (z, x, y)
+        return (
+            torch.cat([x[..., order], spins], dim=-1),
+            torch.cat([first[..., order], torch.zeros_like(first[..., :1])], dim=-1),
+            torch.cat([second[..., order], torch.zeros_like(second[..., :1])], dim=-1),
+        )
+
+    return fn
+
+
+def envelope_fn(flux: int):
+    """Jets of the envelope ``norm_m u^(Q+m) v^(Q-m)``, ``[*B, N, 2Q+1]`` complex.
+
+    With ``env = norm A(t) e^{i m p}`` and ``A = cos(t/2)^a sin(t/2)^b``:
+    ``A_t / A = L1 = (b/2) cot(t/2) - (a/2) tan(t/2)``, so along a seed
+    ``(da, db)`` the first derivative is ``env g`` with ``g = L1 da + i m db``
+    and the second is ``env (g^2 + L1' da^2)``,
+    ``L1' = -(b/4) / sin(t/2)^2 - (a/4) / cos(t/2)^2``.
+    """
+    alpha, beta, _ = envelope_exponents(flux)
+
+    def fn(data, seeds):
+        env = envelope(data[..., 0], data[..., 1], flux)
+        theta = data[..., 0, None]
+        a = torch.tensor(alpha, dtype=data.dtype, device=data.device)
+        b = torch.tensor(beta, dtype=data.dtype, device=data.device)
+        c, s = torch.cos(theta / 2), torch.sin(theta / 2)
+        l1 = 0.5 * b * c / s - 0.5 * a * s / c
+        dl1 = -0.25 * b / (s * s) - 0.25 * a / (c * c)
+        da, db = seeds[..., 0, None], seeds[..., 1, None]
+        g = torch.complex(l1 * da, 0.5 * (a - b) * db)
+        return env, env * g, env * (g * g + dl1 * da * da)
+
+    return fn
+
+
+def jastrow_fn(nspins, params: dict):
+    """Jets of the Jastrow ``sum_pairs -c alpha^2 / (alpha + r_ij)`` on chord distances."""
+    par, anti = jastrow_pairs(nspins)
+
+    def fn(data, seeds):
+        x, first, second = _sphere_point(data, seeds)
+        value = torch.zeros(data.shape[:-2], dtype=data.dtype, device=data.device)
+        d1 = torch.zeros(seeds.shape[:-2], dtype=data.dtype, device=data.device)
+        d2 = torch.zeros_like(d1)
+        for pairs, name, coef in ((par, "ee_par", 0.25), (anti, "ee_anti", 0.5)):
+            if not pairs:
+                continue
+            i, j = (list(v) for v in zip(*pairs))
+            delta = x[..., i, :] - x[..., j, :]
+            ddelta = first[..., i, :] - first[..., j, :]
+            d2delta = second[..., i, :] - second[..., j, :]
+            r = torch.linalg.vector_norm(delta, dim=-1)
+            dr = torch.sum(delta * ddelta, dim=-1) / r
+            d2r = (torch.sum(ddelta * ddelta + delta * d2delta, dim=-1) - dr * dr) / r
+            alpha = params[name]
+            den = alpha + r
+            g = -(coef * alpha**2) / den
+            g1 = -g / den
+            g2 = -2 * g1 / den
+            value = value + g.sum(dim=-1)
+            d1 = d1 + (g1 * dr).sum(dim=-1)
+            d2 = d2 + (g2 * dr * dr + g1 * d2r).sum(dim=-1)
+        return value, d1, d2
+
+    return fn
+
+
+def _dense(p: dict, t: Jet, use_bias: bool = True) -> Jet:
+    kernel = p["kernel"]
+    return fwdlap.linear(lambda v: v @ kernel, t, bias=p["bias"] if use_bias else None)
+
+
+def _featured_orbitals(p: dict, t: Jet, nspins) -> Jet:
+    """Per-spin-sector complex orbital projections ``[*B, N, F, ne, nd]``."""
+    sectors = []
+    index = 0
+    for lo, hi in ((0, nspins[0]), (nspins[0], nspins[0] + nspins[1])):
+        if hi == lo:
+            continue
+        wr, wi = p[f"DenseGeneral_{index}"], p[f"DenseGeneral_{index + 1}"]
+        index += 2
+        kernel = torch.complex(wr["kernel"], wi["kernel"])
+        feat_shape = kernel.shape[1:]
+        kernel2d = kernel.reshape(kernel.shape[0], -1)
+        bias = torch.complex(wr["bias"], wi["bias"])
+        h_alpha = fwdlap.linear(lambda v, lo=lo, hi=hi: v[..., lo:hi, :], t)
+        sectors.append(
+            fwdlap.linear(
+                lambda v, k=kernel2d, fs=feat_shape: (v.to(k.dtype) @ k).reshape(
+                    *v.shape[:-1], *fs
+                ),
+                h_alpha,
+                bias=bias,
+            )
+        )
+    if len(sectors) == 1:
+        return sectors[0]
+    return Jet(*(torch.cat(parts, dim=-4) for parts in zip(*sectors)))
+
+
+def psiformer_logpsi_jet(
+    model: Psiformer, data: torch.Tensor, compute_l2: bool = False, kernels: bool = True
+) -> Jet:
+    """Second-order jet of ``log psi`` at batched configurations ``[*B, N, 2]``.
+
+    Args:
+        model: the Psiformer (its parameters are read, not differentiated).
+        data: ``[*B, N, 2]`` configurations.
+        compute_l2: also carry the x/y L^2 directions (E = 3 instead of 1).
+        kernels: route the jet LayerNorm and attention through their wrappers,
+            which launch the hand-written kernels for CUDA tensors.  ``False``
+            calls the plain versions on any device, to hold the kernel path
+            against the plain path end to end.
+
+    Returns:
+        Scalar-per-walker :class:`Jet` seeded with :func:`fwdlap.electron_seeds`.
+    """
+    if kernels:
+        layernorm, attention = jet_layernorm.layernorm_jet, jet_attention.attention_jet
+    else:
+        layernorm = jet_layernorm.layernorm_jet_plain
+        attention = jet_attention.attention_jet_plain
+    p = param_tree(model)
+    extras = 3 if compute_l2 else 1
+    seeds = fwdlap.electron_seeds(data, compute_l2)
+
+    h0 = fwdlap.jet_of_fn(input_feature_fn(model.nspins), data, seeds, extras)
+    env = fwdlap.jet_of_fn(envelope_fn(model.flux), data, seeds, extras)
+
+    # Each intermediate jet is dropped as soon as it is used: at batch 3360 in
+    # L^2 mode one [P, B, T, D] jet is 413 MB.
+    tower = p["PsiformerLayers_0"]
+    h = _dense(tower["Dense_0"], h0, use_bias=False)
+    del h0
+    for i in range(model.num_layers):
+        attn = attention(tower[f"MultiHeadAttention_{i}"], model.num_heads, h)
+        proj = _dense(tower[f"Dense_{2 * i + 1}"], attn, use_bias=False)
+        del attn
+        h = layernorm(tower[f"LayerNorm_{2 * i}"], h, residual=proj)
+        del proj
+        mlp = fwdlap.elementwise(fwdlap.tanh, _dense(tower[f"Dense_{2 * i + 2}"], h))
+        h = layernorm(tower[f"LayerNorm_{2 * i + 1}"], h, residual=mlp)
+        del mlp
+
+    orbitals = _featured_orbitals(p["Orbitals_0"]["featured_orbitals"], h, model.nspins)
+    del h
+    if model.orbital_type == OrbitalType.sparse:
+        lll = p["Orbitals_0"]["lll_weight"]
+        kernel = lll["kernel"].to(orbitals.x.dtype)
+        orbitals = fwdlap.linear(
+            lambda v: torch.movedim(v, -3, -1) @ kernel, orbitals, bias=lll["bias"]
+        )  # [*B, N, ne, nd, n_orb]
+        orbitals = fwdlap.linear(lambda v: torch.movedim(v, -1, -3), orbitals)
+
+    contracted = fwdlap.bilinear(
+        lambda o, e: torch.einsum("...nfed,...nf->...ned", o, e), orbitals, env
+    )
+    phi_jet = fwdlap.linear(lambda v: torch.movedim(v, -1, -3), contracted)
+    jastrow = fwdlap.jet_of_fn(
+        jastrow_fn(model.nspins, p["Jastrow_0"]), data, seeds, extras
+    )
+    return fwdlap.add(fwdlap.logsumdet_jet(phi_jet), jastrow)

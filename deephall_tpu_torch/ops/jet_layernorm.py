@@ -1,0 +1,101 @@
+"""LayerNorm of a forward-Laplacian jet: hand-written CUDA kernel and plain version.
+
+Replaces ``deephall_tpu/ops/jet_layernorm.py:_kernel`` (the Pallas TPU kernel
+launched by ``_fused_rows``).  The kernel, ``csrc/jet_layernorm.cu``, normalises
+every plane of a jet row in one pass, with the optional residual added on load,
+so each element is read once and written once: the work is bound by bytes on
+the H100 and one pass is the least it can move.
+
+:func:`layernorm_jet` runs the kernel for CUDA tensors and the plain version
+(:func:`layernorm_jet_plain`, the primitive chain of
+``deephall_tpu/networks/fwdlap.py:_layernorm``) for CPU tensors.  A CUDA jet
+the kernel does not take raises.  ``layernorm_jet.launches`` counts launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from deephall_tpu_torch.ops import fwdlap
+from deephall_tpu_torch.ops._build import check, function, require, stream
+from deephall_tpu_torch.ops.fwdlap import Jet
+
+MAX_TANGENTS = 32  # C, the register capacity of the kernel
+MAX_EXTRAS = 4  # E
+
+
+def layernorm_jet_plain(p: dict, t: Jet, eps: float = 1e-5, residual: Jet | None = None) -> Jet:
+    """``LN(t + residual)`` as a chain of jet primitives."""
+    if residual is not None:
+        t = fwdlap.add(t, residual)
+    mean = fwdlap.linear(lambda v: v.mean(dim=-1, keepdim=True), t)
+    xc = Jet(t.x - mean.x, t.j - mean.j, t.l - mean.l, t.d - mean.d)
+    var = fwdlap.linear(
+        lambda v: v.mean(dim=-1, keepdim=True), fwdlap.elementwise(fwdlap.square, xc)
+    )
+    rs = fwdlap.elementwise(fwdlap.rsqrt_eps(eps), var)
+    x_hat = fwdlap.bilinear(lambda a, b: a * b, xc, rs)
+    return fwdlap.linear(lambda v: v * p["scale"], x_hat, bias=p["bias"])
+
+
+_PTR = ctypes.c_void_p
+_ARGTYPES = (_PTR,) * 14 + (
+    ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, _PTR,
+)
+
+
+def _check_jet(t: Jet, shape, j_shape, d_shape, device, what: str) -> None:
+    for name, v, want in zip(Jet._fields, t, (shape, j_shape, shape, d_shape)):
+        require(v, device, want, f"{what}.{name}")
+
+
+def layernorm_jet(p: dict, t: Jet, eps: float = 1e-5, residual: Jet | None = None) -> Jet:
+    """``LN(t + residual)`` of a jet with its feature axis last.
+
+    Args:
+        p: ``{"scale": [D], "bias": [D]}``.
+        t: jet with ``x: [*S, D]``, ``j: [C, *S, D]``, ``l: [*S, D]``, ``d: [E, *S, D]``.
+        eps: variance epsilon.
+        residual: optional jet of the same shapes, added first.
+
+    Returns:
+        The normalised jet; on CUDA its four fields are views of one
+        ``[C + E + 2, *S, D]`` buffer in the plane order x, j, l, d.
+    """
+    if t.x.device.type == "cpu":
+        return layernorm_jet_plain(p, t, eps, residual)
+    device = t.x.device
+    shape = tuple(t.x.shape)
+    c, e = t.j.shape[0], t.d.shape[0]
+    feat = shape[-1]
+    rows = t.x.numel() // feat
+    j_shape, d_shape = (c, *shape), (e, *shape)
+    _check_jet(t, shape, j_shape, d_shape, device, "t")
+    if residual is not None:
+        _check_jet(residual, shape, j_shape, d_shape, device, "residual")
+    if feat % 32 or feat > 1024:
+        raise ValueError(f"feature width {feat}: the kernel needs D % 32 == 0 and D <= 1024")
+    if not (1 <= e <= MAX_EXTRAS and e <= c <= MAX_TANGENTS):
+        raise ValueError(f"(C, E) = ({c}, {e}): the kernel needs 1 <= E <= {MAX_EXTRAS}, E <= C <= {MAX_TANGENTS}")
+    scale, bias = p["scale"], p["bias"]
+    require(scale, device, (feat,), "scale")
+    require(bias, device, (feat,), "bias")
+
+    out = torch.empty((c + e + 2, *shape), dtype=torch.float32, device=device)
+    ox, oj, ol, od = out[0], out[1 : 1 + c], out[1 + c], out[2 + c :]
+    res = residual if residual is not None else (None,) * 4
+    ptrs = [v.data_ptr() if v is not None else None for v in (*t, *res)]
+    status = function("jet_layernorm", "jet_layernorm_f32", _ARGTYPES)(
+        *ptrs,
+        scale.data_ptr(), bias.data_ptr(),
+        ox.data_ptr(), oj.data_ptr(), ol.data_ptr(), od.data_ptr(),
+        rows, feat, c, e, eps, stream(device),
+    )
+    check(status, "jet_layernorm")
+    layernorm_jet.launches += 1
+    return Jet(ox, oj, ol, od)
+
+
+layernorm_jet.launches = 0

@@ -1,0 +1,23 @@
+"""Inference (no-op) optimizer: evaluate statistics, keep parameters fixed.
+
+Port of ``deephall_tpu/optimizers/none.py``: ``ENERGY_DIFF`` mode, so no
+parameter gradient is computed at all.
+"""
+
+from __future__ import annotations
+
+from deephall_tpu_torch.types import CheckpointState
+
+
+def make_inference_step(loss_diff_fn):
+    """``(init, step)``: ``init`` keeps no state; ``step(state) -> (state, stats)``."""
+
+    def init(model, data):
+        del model, data
+        return None
+
+    def step(state: CheckpointState):
+        stats, _ = loss_diff_fn(state.data)
+        return state, stats
+
+    return init, step

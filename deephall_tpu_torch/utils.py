@@ -1,0 +1,27 @@
+"""Device selection and precision settings shared by the entry points."""
+
+from __future__ import annotations
+
+import torch
+
+
+def set_full_precision() -> None:
+    """Forbid TF32 in float32 matrix products and convolutions.
+
+    Local energies are second derivatives of the network; reduced-precision
+    products shift the energy measurably, so everything that feeds them runs in
+    full float32.
+    """
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+    """The device an entry point runs on; raises if CUDA is asked for and absent."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA was requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' (--device cpu) to run on the CPU."
+        )
+    return device

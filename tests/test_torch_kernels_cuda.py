@@ -1,0 +1,98 @@
+"""The hand-written CUDA kernels against their plain versions, on a card.
+
+These tests need an NVIDIA card with ``nvcc`` (the kernels have no CPU mode)
+and skip elsewhere.  Run them on the card with
+
+    python -m pytest tests/test_torch_kernels_cuda.py -m cuda
+
+Tolerance: 2e-5 of each output field's largest value, as the JAX package's
+kernel tests hold the Pallas kernels against their chains.
+"""
+
+from __future__ import annotations
+
+import math
+
+import pytest
+import torch
+
+from deephall_tpu_torch.ops import jet_attention, jet_layernorm
+from deephall_tpu_torch.ops.fwdlap import Jet
+
+pytestmark = pytest.mark.cuda
+
+TOL = 2e-5
+
+
+@pytest.fixture
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def random_jet(gen, device, batch, tokens, feat, c, e):
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    return Jet(normal(batch, tokens, feat), normal(c, batch, tokens, feat),
+               normal(batch, tokens, feat), normal(e, batch, tokens, feat))
+
+
+def assert_close(got, want):
+    for name, a, b in zip(Jet._fields, got, want):
+        scale = b.abs().max().item() + 1e-30
+        err = (a - b).abs().max().item() / scale
+        assert err <= TOL, f"{name}: {err:.2e}"
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("c,e,t,feat", [(13, 1, 6, 256), (15, 3, 6, 256), (17, 1, 8, 64), (5, 2, 3, 512)])
+def test_layernorm_kernel(device, c, e, t, feat, residual):
+    gen = torch.Generator(device=device).manual_seed(c + feat)
+    x = random_jet(gen, device, 37, t, feat, c, e)
+    r = random_jet(gen, device, 37, t, feat, c, e) if residual else None
+    p = {"scale": torch.randn(feat, generator=gen, device=device) * 0.3 + 1,
+         "bias": torch.randn(feat, generator=gen, device=device) * 0.1}
+    before = jet_layernorm.layernorm_jet.launches
+    got = jet_layernorm.layernorm_jet(p, x, residual=r)
+    torch.cuda.synchronize()
+    assert jet_layernorm.layernorm_jet.launches == before + 1
+    assert_close(got, jet_layernorm.layernorm_jet_plain(p, x, residual=r))
+
+
+@pytest.mark.parametrize("c,e,t,feat,heads", [(13, 1, 6, 256, 4), (15, 3, 6, 256, 4), (17, 1, 8, 64, 4)])
+def test_attention_kernels(device, c, e, t, feat, heads):
+    gen = torch.Generator(device=device).manual_seed(c + t)
+    x = random_jet(gen, device, 33, t, feat, c, e)
+    dh = feat // heads
+
+    def normal(*shape, scale):
+        return torch.randn(shape, generator=gen, device=device) * scale
+
+    p = {n: {"kernel": normal(feat, heads, dh, scale=1 / math.sqrt(feat)),
+             "bias": normal(heads, dh, scale=0.1)} for n in ("query", "key", "value")}
+    p["out"] = {"kernel": normal(heads, dh, feat, scale=1 / math.sqrt(feat)),
+                "bias": normal(feat, scale=0.1)}
+    got = jet_attention.attention_jet(p, heads, x)
+    torch.cuda.synchronize()
+    assert_close(got, jet_attention.attention_jet_plain(p, heads, x))
+    # A jet that is already one packed buffer (a kernel's output) is read in place.
+    assert jet_attention.packed_planes(got) is not None
+    again = jet_attention.attention_jet(p, heads, got)
+    assert_close(again, jet_attention.attention_jet_plain(p, heads, got))
+
+
+def test_kernels_refuse_what_they_do_not_take(device):
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = random_jet(gen, device, 4, 6, 48, 5, 1)  # D % 32 != 0
+    p = {"scale": torch.ones(48, device=device), "bias": torch.zeros(48, device=device)}
+    with pytest.raises(ValueError):
+        jet_layernorm.layernorm_jet(p, x)
+    double = Jet(*(v.double() for v in random_jet(gen, device, 4, 6, 64, 5, 1)))
+    p64 = {"scale": torch.ones(64, device=device), "bias": torch.zeros(64, device=device)}
+    with pytest.raises(TypeError):
+        jet_layernorm.layernorm_jet(p64, double)
+    a = torch.randn(8, 16, device=device).t()  # not contiguous
+    with pytest.raises(ValueError):
+        jet_attention.jet_gemm(a, torch.randn(8, 4, device=device), torch.zeros(4, device=device), 2)
