@@ -10,11 +10,14 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
 3. kernels: every kernel against its plain PyTorch version at the production
    shapes (B=3360 walkers, T=6, D=256, H=4) in both jet modes, (C, E) = (15, 3)
    with L^2 and (13, 1) without, with each one's time, its plain version's
-   time and its bound;
+   time and its bound; ``jet_gemm`` at both of its shapes (N = 3D and N = D)
+   beside ``torch.matmul``;
 4. slice: the inference CLI on the converged N=6 checkpoint
    (``artifacts/prod_r4``), 20 iterations at batch 3360 with L^2 on and the
-   bf16 sweep; the mean energy must lie within 0.005 of 6.8681 and each
-   kernel's launch count must match the iterations;
+   bf16 sweep; the mean energy must lie within 0.005 of 6.8681, each
+   kernel's launch count must match the iterations, and every ``jet_gemm`` and
+   ``jet_softmax_values`` launch must have taken the kernel built for this
+   shape (tensor cores, tiled);
 5. end to end: local energy and observables of the 3360 stored walkers through
    the kernels and through the plain versions, on the card; the batch means
    and the median walker must agree to 1e-4 of each observable's RMS.
@@ -45,13 +48,14 @@ END_TO_END_TOL = 1e-4
 ANCHOR_ENERGY, ANCHOR_TOL = 6.8681, 0.005
 ITERATIONS = 20
 
-# Memory rate (bytes/s) and float32 CUDA-core rate (flop/s) by card, from
-# NVIDIA's data sheets; the first match in the device name wins.
+# Memory rate (bytes/s), float32 CUDA-core rate and dense TF32 tensor-core rate
+# (flop/s) by card, from NVIDIA's data sheets; the first match in the device
+# name wins.
 PEAKS = (
-    ("H100 PCIe", 2.0e12, 51e12),
-    ("H100 NVL", 3.9e12, 60e12),
-    ("H200", 4.8e12, 67e12),
-    ("H100", 3.35e12, 67e12),
+    ("H100 PCIe", 2.0e12, 51e12, 378e12),
+    ("H100 NVL", 3.9e12, 60e12, 417e12),
+    ("H200", 4.8e12, 67e12, 495e12),
+    ("H100", 3.35e12, 67e12, 495e12),
 )
 
 
@@ -59,16 +63,29 @@ def emit(**fields) -> None:
     print(json.dumps(fields), flush=True)
 
 
-def peaks(name: str) -> tuple[float, float]:
-    for key, bandwidth, flops in PEAKS:
+def peaks(name: str) -> tuple[float, float, float]:
+    for key, *rates in PEAKS:
         if key in name:
-            return bandwidth, flops
+            return tuple(rates)
     raise RuntimeError(f"no peak rates known for {name}")
 
 
-def bound(nbytes: float, flops: float, rates) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / rates[0] * 1e3, flops / rates[1] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound(nbytes: float, flops: float, rates, product_flops: float = 0.0) -> tuple[float, str]:
+    """Least time in ms: bytes at the memory rate, or ``flops`` at the float32
+    rate plus ``product_flops`` as three TF32 products each on the tensor cores."""
+    t_bytes = nbytes / rates[0] * 1e3
+    t_ops = (flops / rates[1] + 3 * product_flops / rates[2]) * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes"
+    return t_ops, "operations (3xTF32)" if product_flops else "operations"
+
+
+def against(row: dict) -> dict:
+    """``row`` with the kernel's time over the library's and its bound over its time."""
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    if row.get("library_ms"):
+        row["vs_library"] = row["ms"] / row["library_ms"]
+    return row
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -94,7 +111,8 @@ def field_error(got, want) -> tuple[float, float]:
     return err, err / max(want.abs().max().item(), 1e-30)
 
 
-def compare(name: str, got, want, tol: float) -> float:
+def compare(name: str, got, want, tol: float) -> dict:
+    """Worst absolute and relative error over the fields; raises beyond ``tol``."""
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     worst_abs, worst_rel = 0.0, 0.0
@@ -103,7 +121,7 @@ def compare(name: str, got, want, tol: float) -> float:
         worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
     if not worst_rel <= tol:
         raise AssertionError(f"{name}: relative error {worst_rel:.3e} > {tol:.0e}")
-    return worst_abs
+    return dict(max_abs_err=worst_abs, max_rel_err=worst_rel)
 
 
 def random_jet(gen, c, e, device):
@@ -166,12 +184,12 @@ def phase_kernels(device, rates) -> dict:
         # Read the jet and the residual, write the output; about a dozen flops
         # per element (add, centre, variance products, output expansion).
         ln_bound = bound(3 * elems * 4 + 2 * FEAT * 4, 12 * elems, rates)
-        results[("jet_layernorm", mode)] = dict(
-            max_abs_err=err,
+        results[("jet_layernorm", mode)] = against(dict(
+            **err,
             ms=cuda_ms(lambda: jl.layernorm_jet(p_ln, t, residual=r)),
             plain_ms=cuda_ms(lambda: jl.layernorm_jet_plain(p_ln, t, residual=r), reps=5),
             bound_ms=ln_bound[0], bound_by=ln_bound[1], library_ms=None,
-        )
+        ))
         del r
 
         p = attention_params(gen, device)
@@ -186,30 +204,39 @@ def phase_kernels(device, rates) -> dict:
             tuple(ja.attention_jet_plain(p, HEADS, t)),
             KERNEL_TOL,
         )
-        att_bound = bound(2 * elems * 4 + 4 * (FEAT * FEAT + FEAT) * 4, proj_flops + core_flops, rates)
-        results[("jet_attention", mode)] = dict(
-            max_abs_err=err,
+        att_bound = bound(2 * elems * 4 + 4 * (FEAT * FEAT + FEAT) * 4, core_flops, rates, proj_flops)
+        results[("jet_attention", mode)] = against(dict(
+            **err,
             ms=cuda_ms(lambda: ja.attention_jet(p, HEADS, t)),
             plain_ms=cuda_ms(lambda: ja.attention_jet_plain(p, HEADS, t), reps=5),
             bound_ms=att_bound[0], bound_by=att_bound[1], library_ms=None,
-        )
+        ))
 
         stacked = torch.cat([t.x[None], t.j, t.l[None], t.d]).reshape(planes * rows, FEAT)
         del t
-        w = torch.randn(FEAT, 3 * FEAT, generator=gen, device=device) / math.sqrt(FEAT)
-        b = torch.randn(3 * FEAT, generator=gen, device=device) * 0.1
-        qkv = ja.jet_gemm(stacked, w, b, rows)
-        err = compare(f"jet_gemm {mode}", qkv, ja.jet_gemm_plain(stacked, w, b, rows), KERNEL_TOL)
         m = planes * rows
-        gemm_bound = bound((m * FEAT + FEAT * 3 * FEAT + 3 * FEAT + m * 3 * FEAT) * 4,
-                           2 * m * FEAT * 3 * FEAT, rates)
-        results[("jet_gemm", mode)] = dict(
-            max_abs_err=err,
-            ms=cuda_ms(lambda: ja.jet_gemm(stacked, w, b, rows)),
-            plain_ms=cuda_ms(lambda: ja.jet_gemm_plain(stacked, w, b, rows)),
-            bound_ms=gemm_bound[0], bound_by=gemm_bound[1],
-            library_ms=cuda_ms(lambda: torch.matmul(stacked, w)),
-        )
+        for width, key in ((3 * FEAT, "jet_gemm"), (FEAT, "jet_gemm_out")):
+            w = torch.randn(FEAT, width, generator=gen, device=device) / math.sqrt(FEAT)
+            b = torch.randn(width, generator=gen, device=device) * 0.1
+            split = ja.split_weight(w)
+            before = ja.jet_gemm.launches_tensor_core
+            out = ja.jet_gemm(stacked, split, b, rows)
+            if ja.jet_gemm.launches_tensor_core != before + 1:
+                raise AssertionError(f"jet_gemm {mode} N={width}: not on the tensor cores")
+            err = compare(f"jet_gemm {mode} N={width}", out, ja.jet_gemm_plain(stacked, w, b, rows), KERNEL_TOL)
+            gemm_bound = bound((m * FEAT + FEAT * width + width + m * width) * 4, 0,
+                               rates, 2 * m * FEAT * width)
+            results[(key, mode)] = against(dict(
+                **err,
+                ms=cuda_ms(lambda: ja.jet_gemm(stacked, split, b, rows)),
+                plain_ms=cuda_ms(lambda: ja.jet_gemm_plain(stacked, w, b, rows)),
+                bound_ms=gemm_bound[0], bound_by=gemm_bound[1],
+                library_ms=cuda_ms(lambda: torch.matmul(stacked, w)),
+                cuda_core_ms=cuda_ms(lambda: ja.jet_gemm(stacked, w, b, rows), reps=3),
+            ))
+            if width == 3 * FEAT:
+                qkv = out
+            del out
         del stacked
 
         err = compare(
@@ -219,18 +246,25 @@ def phase_kernels(device, rates) -> dict:
             KERNEL_TOL,
         )
         sv_bound = bound(4 * elems * 4, core_flops, rates)
-        results[("jet_softmax_values", mode)] = dict(
-            max_abs_err=err,
+        results[("jet_softmax_values", mode)] = against(dict(
+            **err,
             ms=cuda_ms(lambda: ja.softmax_values(qkv, BATCH, TOKENS, HEADS, c, e)),
             plain_ms=cuda_ms(lambda: ja.softmax_values_plain(qkv, BATCH, TOKENS, HEADS, c, e), reps=5),
             bound_ms=sv_bound[0], bound_by=sv_bound[1], library_ms=None,
-        )
+        ))
         del qkv
         torch.cuda.empty_cache()
         for (name, mode_), row in results.items():
             if mode_ == mode:
                 emit(phase="kernel", kernel=name, mode=mode, **row)
     return results
+
+
+def table_numbers(row: dict) -> dict:
+    """``row`` for the kernel table: ``bound_by`` is ``bytes`` or ``operations`` there,
+    and which operations (three TF32 products) goes to ``bound_detail``."""
+    kind = row["bound_by"].split(" ")[0]
+    return {**row, "bound_by": kind, "bound_detail": row["bound_by"]}
 
 
 def launch_counts() -> dict:
@@ -242,6 +276,8 @@ def launch_counts() -> dict:
         "jet_attention": ja.attention_jet.launches,
         "jet_gemm": ja.jet_gemm.launches,
         "jet_softmax_values": ja.softmax_values.launches,
+        "jet_gemm_tensor_core": ja.jet_gemm.launches_tensor_core,
+        "jet_softmax_values_tiled": ja.softmax_values.launches_tiled,
     }
 
 
@@ -251,6 +287,8 @@ def reset_counts() -> None:
 
     for fn in (jl.layernorm_jet, ja.attention_jet, ja.jet_gemm, ja.softmax_values):
         fn.launches = 0
+    ja.jet_gemm.launches_tensor_core = 0
+    ja.softmax_values.launches_tiled = 0
 
 
 def phase_slice(workdir: Path) -> dict:
@@ -282,6 +320,9 @@ def phase_slice(workdir: Path) -> dict:
         "jet_attention": calls * layers,
         "jet_gemm": calls * 2 * layers,
         "jet_softmax_values": calls * layers,
+        # every launch of the production shape takes the kernel built for it
+        "jet_gemm_tensor_core": calls * 2 * layers,
+        "jet_softmax_values_tiled": calls * layers,
     }
     result = dict(
         iterations=len(history),
@@ -399,7 +440,7 @@ def main() -> int:
     libraries = _build.build()
     ptxas = {
         lib: [line.strip() for line in Path(f"{path}.log").read_text().splitlines()
-              if "registers" in line or "spill" in line]
+              if "registers" in line or "spill" in line or "Potential Performance Loss" in line]
         for lib, path in libraries.items() if Path(f"{path}.log").exists()
     }
     emit(phase="build", seconds=time.perf_counter() - start, libraries=sorted(libraries), ptxas=ptxas)
@@ -417,9 +458,16 @@ def main() -> int:
     }
     table = []
     for kernel, (source, replaces) in sources.items():
-        row = kernels[(kernel, f"C{MODES[0][0]}E{MODES[0][1]}")]
-        table.append(dict(name=kernel, route="cuda", source=source, replaces=replaces,
-                          launches=counts[kernel], **row))
+        mode = f"C{MODES[0][0]}E{MODES[0][1]}"
+        row = dict(name=kernel, route="cuda", source=source, replaces=replaces,
+                   launches=counts[kernel], **table_numbers(kernels[(kernel, mode)]))
+        if kernel == "jet_gemm":
+            # The q/k/v projection (N = 3D) above; the output projection (N = D) here.
+            row["launches_tensor_core"] = counts["jet_gemm_tensor_core"]
+            row["out_projection"] = table_numbers(kernels[("jet_gemm_out", mode)])
+        if kernel == "jet_softmax_values":
+            row["launches_tiled"] = counts["jet_softmax_values_tiled"]
+        table.append(row)
     print(smi, flush=True)
     emit(kernels=table)
     emit(ok=True, device={"platform": "gpu", "kind": name, "count": torch.cuda.device_count()})

@@ -8,26 +8,38 @@ launches of two hand-written kernels from ``csrc/jet_attention.cu``:
 
 1. :func:`jet_gemm` of the stacked planes ``[P*B*T, D]`` with ``[wq | wk | wv]``
    (1/sqrt(dh) folded into ``wq`` and ``bq``), bias on the primal rows only;
-2. :func:`softmax_values`: logits, softmax and value-contraction jets, one
-   block per (walker, head) with that head's q/k/v planes in shared memory;
+2. :func:`softmax_values`: logits, softmax and value-contraction jets of every
+   (walker, head), that head's q/k/v planes in shared memory;
 3. :func:`jet_gemm` with ``wo``, bias on the primal rows only.
 
-The work is bound by operations: the four projections are ``8 P B T D^2``
-flops in full float32 on the CUDA cores (no TF32, as the TPU kernel's
-``Precision.HIGHEST``).  A jet whose four fields are adjacent views of one
-``[P, B, T, D]`` buffer (what the kernels return) is read with no copy; any
-other jet is stacked once.
+The projections are bound by operations.  The local energy needs float32
+products (the TPU kernel's ``Precision.HIGHEST``), which the tensor cores give
+as three TF32 products of operands split into ``hi = tf32(x)`` and
+``lo = tf32(x - hi)``: ``lo*hi + hi*lo + hi*hi``, summed in float32.  The bound
+is ``3 * 2MNK`` at the TF32 rate.  The weights are constant during inference,
+so :func:`prepare_weights` splits and transposes them once and caches the
+result; the kernel splits only the activations.  The core is bound by bytes.
+PyTorch's TF32 switch is not involved and stays off.
 
-:func:`attention_jet` runs the kernels for CUDA tensors and the plain version
-(:func:`attention_jet_plain`, the ``vpu`` chain of
-``deephall_tpu/networks/fwdlap.py:_attention`` with its contractions written as
-einsums) for CPU tensors.  Each wrapper counts its launches in ``.launches``.
+Each wrapper picks between two hand-written kernels by shape, before the
+launch: the tensor-core GEMM takes ``K % 32 == 0`` and ``N % 128 == 0``, the
+tiled core ``T = 6``, ``dh = 64`` and ``(C, E)`` in ``(15, 3)``, ``(13, 1)``;
+the generic kernels take the rest.  A jet whose four fields are adjacent views
+of one ``[P, B, T, D]`` buffer (what the kernels return) is read with no copy;
+any other jet is stacked once.
+
+For CPU tensors every wrapper takes its plain version; :func:`attention_jet`
+then runs the same three steps through them.  :func:`attention_jet_plain` is
+the ``vpu`` chain of ``deephall_tpu/networks/fwdlap.py:_attention`` with its
+contractions written as einsums.  Each wrapper counts its launches in
+``.launches``, and those of the card-specific kernel apart.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -36,11 +48,37 @@ from deephall_tpu_torch.ops._build import check, function, require, stream
 from deephall_tpu_torch.ops.fwdlap import Jet
 
 _PTR = ctypes.c_void_p
-_GEMM_ARGTYPES = (_PTR,) * 4 + (ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int64, _PTR)
+_GEMM_TAIL = (ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int64, _PTR)
+_GEMM_ARGTYPES = (_PTR,) * 4 + _GEMM_TAIL
+_GEMM_TC_ARGTYPES = (_PTR,) * 5 + _GEMM_TAIL
 _SV_ARGTYPES = (_PTR, _PTR, ctypes.c_int, ctypes.c_int64) + (ctypes.c_int,) * 5 + (_PTR,)
 
 
 # --- the projections ------------------------------------------------------------
+
+
+class SplitWeight(NamedTuple):
+    """A weight and its TF32 halves: ``w [K, N]``; ``hi``, ``lo`` ``[N, K]`` with
+    ``hi + lo ~ w.T``, each exactly representable in TF32."""
+
+    w: torch.Tensor
+    hi: torch.Tensor
+    lo: torch.Tensor
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """Round float32 to TF32 (10 mantissa bits) as ``cvt.rna.tf32.f32`` does:
+    to nearest, ties away from zero.  The result is float32 with 13 low bits clear."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_weight(w: torch.Tensor) -> SplitWeight:
+    """Split ``w [K, N]`` for the tensor-core GEMM; ``w - hi`` is exact in float32."""
+    w = w.contiguous()
+    wt = w.t().contiguous()
+    hi = tf32_round(wt)
+    return SplitWeight(w, hi, tf32_round(wt - hi))
 
 
 def jet_gemm_plain(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, bias_rows: int):
@@ -49,26 +87,50 @@ def jet_gemm_plain(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, bias_ro
     return out
 
 
-def jet_gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, bias_rows: int):
-    """``a [M, K] @ w [K, N]``, plus ``bias [N]`` on the first ``bias_rows`` rows."""
+def _aligned(*tensors) -> bool:
+    return all(v.data_ptr() % 16 == 0 for v in tensors)
+
+
+def jet_gemm(a: torch.Tensor, w: torch.Tensor | SplitWeight, bias: torch.Tensor, bias_rows: int):
+    """``a [M, K] @ w [K, N]``, plus ``bias [N]`` on the first ``bias_rows`` rows.
+
+    A :class:`SplitWeight` with ``K % 32 == 0`` and ``N % 128 == 0`` goes to the
+    tensor cores (three TF32 products, float32 accuracy); a plain tensor or any
+    other shape to the float32 kernel on the CUDA cores.
+    """
+    full = w.w if isinstance(w, SplitWeight) else w
     if a.device.type == "cpu":
-        return jet_gemm_plain(a, w, bias, bias_rows)
+        return jet_gemm_plain(a, full, bias, bias_rows)
     m, k = a.shape
-    n = w.shape[1]
+    n = full.shape[1]
     require(a, a.device, (m, k), "a")
-    require(w, a.device, (k, n), "w")
+    require(full, a.device, (k, n), "w")
     require(bias, a.device, (n,), "bias")
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    status = function("jet_attention", "jet_gemm_f32", _GEMM_ARGTYPES)(
-        a.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        m, n, k, bias_rows, stream(a.device),
+    tensor_cores = (
+        isinstance(w, SplitWeight) and m > 0 and k % 32 == 0 and n % 128 == 0
+        and _aligned(a, w.hi, w.lo, bias, out)
     )
+    if tensor_cores:
+        require(w.hi, a.device, (n, k), "w.hi")
+        require(w.lo, a.device, (n, k), "w.lo")
+        status = function("jet_attention", "jet_gemm_tf32x3", _GEMM_TC_ARGTYPES)(
+            a.data_ptr(), w.hi.data_ptr(), w.lo.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            m, n, k, bias_rows, stream(a.device),
+        )
+    else:
+        status = function("jet_attention", "jet_gemm_f32", _GEMM_ARGTYPES)(
+            a.data_ptr(), full.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            m, n, k, bias_rows, stream(a.device),
+        )
     check(status, "jet_gemm")
     jet_gemm.launches += 1
+    jet_gemm.launches_tensor_core += tensor_cores
     return out
 
 
 jet_gemm.launches = 0
+jet_gemm.launches_tensor_core = 0
 
 
 # --- logits, softmax and value contraction ----------------------------------------
@@ -122,6 +184,8 @@ def softmax_values(qkv: torch.Tensor, batch: int, tokens: int, heads: int, c: in
 
     Returns:
         ``[P*B*T, D]`` attention outputs per plane, heads concatenated.
+
+    The shapes in ``TILED_SHAPES`` go to the tiled kernel, others to the generic one.
     """
     if qkv.device.type == "cpu":
         return softmax_values_plain(qkv, batch, tokens, heads, c, e)
@@ -131,16 +195,22 @@ def softmax_values(qkv: torch.Tensor, batch: int, tokens: int, heads: int, c: in
     if feat % heads or not 1 <= e <= c:
         raise ValueError(f"unsupported attention shape: D={feat}, H={heads}, C={c}, E={e}")
     out = torch.empty((planes * batch * tokens, feat), dtype=torch.float32, device=qkv.device)
-    status = function("jet_attention", "jet_softmax_values_f32", _SV_ARGTYPES)(
+    tiled = (tokens, feat // heads, c, e) in TILED_SHAPES and _aligned(qkv, out)
+    symbol = "jet_softmax_values_tiled_f32" if tiled else "jet_softmax_values_f32"
+    status = function("jet_attention", symbol, _SV_ARGTYPES)(
         qkv.data_ptr(), out.data_ptr(), planes, batch, tokens, feat, heads, c, e,
         stream(qkv.device),
     )
     check(status, "jet_softmax_values")
     softmax_values.launches += 1
+    softmax_values.launches_tiled += tiled
     return out
 
 
+# (T, dh, C, E) compiled into the tiled kernel: N=6 production, with L^2 and without.
+TILED_SHAPES = ((6, 64, 15, 3), (6, 64, 13, 1))
 softmax_values.launches = 0
+softmax_values.launches_tiled = 0
 
 
 # --- the whole attention ------------------------------------------------------------
@@ -179,6 +249,52 @@ def packed_planes(t: Jet) -> torch.Tensor | None:
     return t.x.as_strided((planes, *t.x.shape), (t.x.numel(), *t.x.stride()))
 
 
+class AttentionWeights(NamedTuple):
+    """What the three launches read: ``[wq/sqrt(dh) | wk | wv]`` and ``wo``, split."""
+
+    wqkv: SplitWeight
+    bqkv: torch.Tensor
+    wo: SplitWeight
+    bo: torch.Tensor
+
+
+_PREPARED: dict[tuple, tuple] = {}
+_PREPARED_MAX = 16
+
+
+def prepare_weights(p: dict, num_heads: int) -> AttentionWeights:
+    """The attention layer's weights as the kernels want them, made once.
+
+    The result is cached by the parameters' addresses and rebuilt when one of
+    them was written in place since (``Tensor._version``).  The cache holds the
+    parameters it was made from, so an address is not reused while its entry lives.
+    """
+    sources = tuple(p[name][leaf] for name in ("query", "key", "value", "out")
+                    for leaf in ("kernel", "bias"))
+    key = (num_heads, *(v.data_ptr() for v in sources))
+    versions = tuple(v._version for v in sources)
+    hit = _PREPARED.get(key)
+    if hit is not None and hit[0] == versions:
+        return hit[2]
+    feat = p["out"]["bias"].shape[0]
+    scale = 1.0 / math.sqrt(feat // num_heads)
+    (wq, bq), (wk, bk), (wv, bv), (wo, bo) = (
+        (p[name]["kernel"].reshape(feat, feat), p[name]["bias"].reshape(feat))
+        for name in ("query", "key", "value", "out")
+    )
+    prepared = AttentionWeights(
+        split_weight(torch.cat([wq * scale, wk, wv], dim=1)),
+        torch.cat([bq * scale, bk, bv]).contiguous(),
+        split_weight(wo),
+        bo.contiguous(),
+    )
+    _PREPARED.pop(key, None)
+    while len(_PREPARED) >= _PREPARED_MAX:
+        _PREPARED.pop(next(iter(_PREPARED)))
+    _PREPARED[key] = (versions, sources, prepared)
+    return prepared
+
+
 def attention_jet(p: dict, num_heads: int, t: Jet) -> Jet:
     """Multi-head self-attention of a jet with ``x: [B, T, D]``.
 
@@ -189,13 +305,13 @@ def attention_jet(p: dict, num_heads: int, t: Jet) -> Jet:
         t: the input jet.
 
     Returns:
-        The output jet; on CUDA its fields are views of one ``[P, B, T, D]`` buffer.
+        The output jet; its fields are views of one ``[P, B, T, D]`` buffer.
     """
-    if t.x.device.type == "cpu":
+    device = t.x.device
+    if device.type == "cpu" and (t.x.ndim != 3 or t.x.dtype != torch.float32):
         return attention_jet_plain(p, num_heads, t)
     if t.x.ndim != 3:
         raise ValueError(f"attention_jet needs x of shape [B, T, D], got {tuple(t.x.shape)}")
-    device = t.x.device
     batch, tokens, feat = t.x.shape
     c, e = t.j.shape[0], t.d.shape[0]
     planes = c + e + 2
@@ -204,27 +320,20 @@ def attention_jet(p: dict, num_heads: int, t: Jet) -> Jet:
     ):
         if v.device != device or v.dtype != torch.float32 or tuple(v.shape) != tuple(want):
             raise TypeError(f"t.{name}: need float32 {tuple(want)} on {device}")
-    head_dim = feat // num_heads
-    scale = 1.0 / math.sqrt(head_dim)
 
     stacked = packed_planes(t)
     if stacked is None:
         stacked = torch.cat([t.x[None], t.j, t.l[None], t.d], dim=0)
     rows = stacked.reshape(planes * batch * tokens, feat)
 
-    def weight(name):
-        return p[name]["kernel"].reshape(feat, feat), p[name]["bias"].reshape(feat)
-
-    (wq, bq), (wk, bk), (wv, bv) = weight("query"), weight("key"), weight("value")
-    wqkv = torch.cat([wq * scale, wk, wv], dim=1).contiguous()
-    bqkv = torch.cat([bq * scale, bk, bv]).contiguous()
+    weights = prepare_weights(p, num_heads)
     primal_rows = batch * tokens
-    qkv = jet_gemm(rows, wqkv, bqkv, primal_rows)
+    qkv = jet_gemm(rows, weights.wqkv, weights.bqkv, primal_rows)
     attn = softmax_values(qkv, batch, tokens, num_heads, c, e)
     del qkv
-    wo, bo = weight("out")
-    out = jet_gemm(attn, wo.contiguous(), bo.contiguous(), primal_rows)
-    attention_jet.launches += 1
+    out = jet_gemm(attn, weights.wo, weights.bo, primal_rows)
+    if device.type != "cpu":
+        attention_jet.launches += 1
     return _split_planes(out.reshape(planes, batch, tokens, feat), c)
 
 

@@ -83,6 +83,55 @@ def test_attention_kernels(device, c, e, t, feat, heads):
     assert_close(again, jet_attention.attention_jet_plain(p, heads, got))
 
 
+def gemm_inputs(gen, device, m, k, n):
+    a = torch.randn(m, k, generator=gen, device=device)
+    w = torch.randn(k, n, generator=gen, device=device) / math.sqrt(k)
+    b = torch.randn(n, generator=gen, device=device) * 0.1
+    return a, w, b
+
+
+# Shapes the tensor-core kernel takes (K % 32 == 0, N % 128 == 0; M is free:
+# less than a tile, ragged, several tiles per block) and shapes it does not.
+@pytest.mark.parametrize("m,k,n,tensor_cores", [
+    (256, 64, 128, True), (37, 32, 128, True), (1000, 256, 768, True), (70001, 256, 256, True),
+    (300, 20, 128, False), (300, 64, 24, False), (129, 16, 4, False), (300, 48, 128, False),
+])
+def test_gemm_kernels(device, m, k, n, tensor_cores):
+    gen = torch.Generator(device=device).manual_seed(m + k + n)
+    a, w, b = gemm_inputs(gen, device, m, k, n)
+    bias_rows = m // 3
+    fn = jet_attention.jet_gemm
+    before = fn.launches, fn.launches_tensor_core
+    got = fn(a, jet_attention.split_weight(w), b, bias_rows)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.launches_tensor_core) == (before[0] + 1, before[1] + tensor_cores)
+    want = a.double() @ w.double()
+    want[:bias_rows] += b.double()
+    assert (got - want).abs().max().item() <= TOL * want.abs().max().item()
+    # A plain tensor as the weight always takes the float32 kernel.
+    generic = fn(a, w, b, bias_rows)
+    assert fn.launches_tensor_core == before[1] + tensor_cores
+    assert (generic - want).abs().max().item() <= TOL * want.abs().max().item()
+
+
+@pytest.mark.parametrize("c,e,t,dh,heads,batch,tiled", [
+    (15, 3, 6, 64, 4, 3, True), (13, 1, 6, 64, 4, 301, True), (15, 3, 6, 64, 2, 150, True),
+    (17, 1, 8, 16, 4, 33, False), (13, 1, 6, 32, 4, 33, False), (14, 2, 6, 64, 4, 33, False),
+])
+def test_softmax_values_kernels(device, c, e, t, dh, heads, batch, tiled):
+    gen = torch.Generator(device=device).manual_seed(c + batch)
+    qkv = torch.randn((c + e + 2) * batch * t, 3 * heads * dh, generator=gen, device=device)
+    fn = jet_attention.softmax_values
+    before = fn.launches, fn.launches_tiled
+    got = fn(qkv, batch, t, heads, c, e)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.launches_tiled) == (before[0] + 1, before[1] + tiled)
+    want = jet_attention.softmax_values_plain(qkv.double(), batch, t, heads, c, e)
+    planes = c + e + 2
+    err = (got.reshape(planes, -1) - want.reshape(planes, -1)).abs().amax(1)
+    assert (err <= TOL * want.reshape(planes, -1).abs().amax(1)).all()
+
+
 def test_kernels_refuse_what_they_do_not_take(device):
     gen = torch.Generator(device=device).manual_seed(0)
     x = random_jet(gen, device, 4, 6, 48, 5, 1)  # D % 32 != 0
