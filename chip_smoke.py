@@ -11,13 +11,15 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
    shapes (B=3360 walkers, T=6, D=256, H=4) in both jet modes, (C, E) = (15, 3)
    with L^2 and (13, 1) without, with each one's time, its plain version's
    time and its bound; ``jet_gemm`` at both of its shapes (N = 3D and N = D)
-   beside ``torch.matmul``;
+   beside ``torch.matmul``; the jet LayerNorm's streamed kernel (with a
+   residual) beside ``torch.add`` over the same bytes, and its generic kernel
+   (without a residual, which the streamed one does not take);
 4. slice: the inference CLI on the converged N=6 checkpoint
    (``artifacts/prod_r4``), 20 iterations at batch 3360 with L^2 on and the
    bf16 sweep; the mean energy must lie within 0.005 of 6.8681, each
-   kernel's launch count must match the iterations, and every ``jet_gemm`` and
-   ``jet_softmax_values`` launch must have taken the kernel built for this
-   shape (tensor cores, tiled);
+   kernel's launch count must match the iterations, and every ``jet_gemm``,
+   ``jet_softmax_values`` and ``jet_layernorm`` launch must have taken the
+   kernel built for this shape (tensor cores, tiled, streamed);
 5. end to end: local energy and observables of the 3360 stored walkers through
    the kernels and through the plain versions, on the card; the batch means
    and the median walker must agree to 1e-4 of each observable's RMS.
@@ -47,6 +49,10 @@ KERNEL_TOL = 2e-5  # max |kernel - plain| / max |plain| per output field
 END_TO_END_TOL = 1e-4
 ANCHOR_ENERGY, ANCHOR_TOL = 6.8681, 0.005
 ITERATIONS = 20
+# The jet LayerNorm takes under half a millisecond, and the host's work before
+# its launch an eighth to a sixth of that (measured on an H100 host): it is
+# timed over this many calls in a row.
+LN_CALLS = 5
 
 # Memory rate (bytes/s), float32 CUDA-core rate and dense TF32 tensor-core rate
 # (flop/s) by card, from NVIDIA's data sheets; the first match in the device
@@ -88,8 +94,13 @@ def against(row: dict) -> dict:
     return row
 
 
-def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median of CUDA-event timings of ``fn`` after warm-up, in ms."""
+def cuda_ms(fn, reps: int = 10, warmup: int = 2, calls: int = 1) -> float:
+    """Median of CUDA-event timings of ``fn`` after warm-up, in ms.
+
+    With ``calls`` above 1 each timing spans that many calls in a row and is
+    divided by it, so that the host's work before a launch (the events wait
+    through it while the card idles) hides under the call before.
+    """
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -98,10 +109,11 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -155,6 +167,12 @@ def attention_params(gen, device):
     return p
 
 
+def same_bytes_add_ms(planes: int, device) -> float:
+    """Time of ``torch.add(T, R, out=O)`` on three buffers of a jet's size."""
+    t, r, out = (torch.empty(planes, BATCH, TOKENS, FEAT, device=device).fill_(i) for i in range(3))
+    return cuda_ms(lambda: torch.add(t, r, out=out), calls=LN_CALLS)
+
+
 def phase_kernels(device, rates) -> dict:
     """Each kernel against its plain version at production shapes, both modes."""
     from deephall_tpu_torch.ops import jet_attention as ja
@@ -175,20 +193,37 @@ def phase_kernels(device, rates) -> dict:
             "scale": torch.randn(FEAT, generator=gen, device=device) * 0.3 + 1.0,
             "bias": torch.randn(FEAT, generator=gen, device=device) * 0.1,
         }
+        before = jl.layernorm_jet.launches_streamed
         err = compare(
             f"jet_layernorm {mode}",
             tuple(jl.layernorm_jet(p_ln, t, residual=r)),
             tuple(jl.layernorm_jet_plain(p_ln, t, residual=r)),
             KERNEL_TOL,
         )
+        if jl.layernorm_jet.launches_streamed != before + 1:
+            raise AssertionError(f"jet_layernorm {mode}: not the streamed kernel")
+        # The generic kernel, at a shape the streamed one does not take.
+        generic = compare(
+            f"jet_layernorm {mode} without a residual",
+            tuple(jl.layernorm_jet(p_ln, t)),
+            tuple(jl.layernorm_jet_plain(p_ln, t)),
+            KERNEL_TOL,
+        )
+        if jl.layernorm_jet.launches_streamed != before + 1:
+            raise AssertionError(f"jet_layernorm {mode} without a residual: not the generic kernel")
         # Read the jet and the residual, write the output; about a dozen flops
         # per element (add, centre, variance products, output expansion).
         ln_bound = bound(3 * elems * 4 + 2 * FEAT * 4, 12 * elems, rates)
         results[("jet_layernorm", mode)] = against(dict(
             **err,
-            ms=cuda_ms(lambda: jl.layernorm_jet(p_ln, t, residual=r)),
+            ms=cuda_ms(lambda: jl.layernorm_jet(p_ln, t, residual=r), calls=LN_CALLS),
+            single_call_ms=cuda_ms(lambda: jl.layernorm_jet(p_ln, t, residual=r)),
             plain_ms=cuda_ms(lambda: jl.layernorm_jet_plain(p_ln, t, residual=r), reps=5),
             bound_ms=ln_bound[0], bound_by=ln_bound[1], library_ms=None,
+            # What the card gives a plain pass over the same bytes (two reads, one write).
+            same_bytes_add_ms=same_bytes_add_ms(planes, device),
+            generic_no_residual_ms=cuda_ms(lambda: jl.layernorm_jet(p_ln, t), calls=LN_CALLS),
+            generic_no_residual_max_rel_err=generic["max_rel_err"],
         ))
         del r
 
@@ -278,6 +313,7 @@ def launch_counts() -> dict:
         "jet_softmax_values": ja.softmax_values.launches,
         "jet_gemm_tensor_core": ja.jet_gemm.launches_tensor_core,
         "jet_softmax_values_tiled": ja.softmax_values.launches_tiled,
+        "jet_layernorm_streamed": jl.layernorm_jet.launches_streamed,
     }
 
 
@@ -289,6 +325,7 @@ def reset_counts() -> None:
         fn.launches = 0
     ja.jet_gemm.launches_tensor_core = 0
     ja.softmax_values.launches_tiled = 0
+    jl.layernorm_jet.launches_streamed = 0
 
 
 def phase_slice(workdir: Path) -> dict:
@@ -323,6 +360,7 @@ def phase_slice(workdir: Path) -> dict:
         # every launch of the production shape takes the kernel built for it
         "jet_gemm_tensor_core": calls * 2 * layers,
         "jet_softmax_values_tiled": calls * layers,
+        "jet_layernorm_streamed": calls * 2 * layers,
     }
     result = dict(
         iterations=len(history),
@@ -440,7 +478,8 @@ def main() -> int:
     libraries = _build.build()
     ptxas = {
         lib: [line.strip() for line in Path(f"{path}.log").read_text().splitlines()
-              if "registers" in line or "spill" in line or "Potential Performance Loss" in line]
+              if "Compiling entry" in line or "registers" in line or "spill" in line
+              or "Potential Performance Loss" in line]
         for lib, path in libraries.items() if Path(f"{path}.log").exists()
     }
     emit(phase="build", seconds=time.perf_counter() - start, libraries=sorted(libraries), ptxas=ptxas)
@@ -461,6 +500,8 @@ def main() -> int:
         mode = f"C{MODES[0][0]}E{MODES[0][1]}"
         row = dict(name=kernel, route="cuda", source=source, replaces=replaces,
                    launches=counts[kernel], **table_numbers(kernels[(kernel, mode)]))
+        if kernel == "jet_layernorm":
+            row["launches_streamed"] = counts["jet_layernorm_streamed"]
         if kernel == "jet_gemm":
             # The q/k/v projection (N = 3D) above; the output projection (N = D) here.
             row["launches_tensor_core"] = counts["jet_gemm_tensor_core"]

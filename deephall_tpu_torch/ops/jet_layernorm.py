@@ -1,15 +1,18 @@
 """LayerNorm of a forward-Laplacian jet: hand-written CUDA kernel and plain version.
 
 Replaces ``deephall_tpu/ops/jet_layernorm.py:_kernel`` (the Pallas TPU kernel
-launched by ``_fused_rows``).  The kernel, ``csrc/jet_layernorm.cu``, normalises
+launched by ``_fused_rows``).  The kernels of ``csrc/jet_layernorm.cu`` normalise
 every plane of a jet row in one pass, with the optional residual added on load,
 so each element is read once and written once: the work is bound by bytes on
-the H100 and one pass is the least it can move.
+the H100 and one pass is the least it can move.  There are two: the streamed
+kernel, compiled for the shapes of the production network (see
+:func:`takes_streamed`), and the generic one for every other shape.
 
-:func:`layernorm_jet` runs the kernel for CUDA tensors and the plain version
+:func:`layernorm_jet` runs a kernel for CUDA tensors and the plain version
 (:func:`layernorm_jet_plain`, the primitive chain of
 ``deephall_tpu/networks/fwdlap.py:_layernorm``) for CPU tensors.  A CUDA jet
-the kernel does not take raises.  ``layernorm_jet.launches`` counts launches.
+that neither kernel takes raises.  ``layernorm_jet.launches`` counts launches
+of either kernel, ``layernorm_jet.launches_streamed`` those of the streamed one.
 """
 
 from __future__ import annotations
@@ -22,8 +25,22 @@ from deephall_tpu_torch.ops import fwdlap
 from deephall_tpu_torch.ops._build import check, function, require, stream
 from deephall_tpu_torch.ops.fwdlap import Jet
 
-MAX_TANGENTS = 32  # C, the register capacity of the kernel
+MAX_TANGENTS = 32  # C, the register capacity of the generic kernel
 MAX_EXTRAS = 4  # E
+STREAMED_FEAT = 256  # the shapes the streamed kernel is compiled for
+STREAMED_MODES = ((15, 3), (13, 1))  # (C, E): with L^2, without
+
+
+def takes_streamed(feat: int, c: int, e: int, residual: bool, rows: int, aligned: bool) -> bool:
+    """Whether the streamed kernel takes this jet; the generic kernel takes the rest.
+
+    It is compiled for ``D = 256`` and the two jet modes of the production
+    network, always adds a residual, and moves 16 bytes at a time: ``aligned``
+    says that every field's address is a multiple of 16.  Any row count will do.
+    """
+    return (
+        feat == STREAMED_FEAT and (c, e) in STREAMED_MODES and residual and rows > 0 and aligned
+    )
 
 
 def layernorm_jet_plain(p: dict, t: Jet, eps: float = 1e-5, residual: Jet | None = None) -> Jet:
@@ -87,15 +104,18 @@ def layernorm_jet(p: dict, t: Jet, eps: float = 1e-5, residual: Jet | None = Non
     ox, oj, ol, od = out[0], out[1 : 1 + c], out[1 + c], out[2 + c :]
     res = residual if residual is not None else (None,) * 4
     ptrs = [v.data_ptr() if v is not None else None for v in (*t, *res)]
-    status = function("jet_layernorm", "jet_layernorm_f32", _ARGTYPES)(
-        *ptrs,
-        scale.data_ptr(), bias.data_ptr(),
-        ox.data_ptr(), oj.data_ptr(), ol.data_ptr(), od.data_ptr(),
-        rows, feat, c, e, eps, stream(device),
+    ptrs += [v.data_ptr() for v in (scale, bias, ox, oj, ol, od)]
+    aligned = all(ptr is None or ptr % 16 == 0 for ptr in ptrs)
+    streamed = takes_streamed(feat, c, e, residual is not None, rows, aligned)
+    symbol = "jet_layernorm_streamed_f32" if streamed else "jet_layernorm_f32"
+    status = function("jet_layernorm", symbol, _ARGTYPES)(
+        *ptrs, rows, feat, c, e, eps, stream(device)
     )
-    check(status, "jet_layernorm")
+    check(status, symbol)
     layernorm_jet.launches += 1
+    layernorm_jet.launches_streamed += int(streamed)
     return Jet(ox, oj, ol, od)
 
 
 layernorm_jet.launches = 0
+layernorm_jet.launches_streamed = 0

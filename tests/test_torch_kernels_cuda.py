@@ -46,19 +46,63 @@ def assert_close(got, want):
         assert err <= TOL, f"{name}: {err:.2e}"
 
 
+def layernorm_params(gen, device, feat):
+    return {"scale": torch.randn(feat, generator=gen, device=device) * 0.3 + 1,
+            "bias": torch.randn(feat, generator=gen, device=device) * 0.1}
+
+
+def run_layernorm(p, x, r, streamed):
+    """The wrapper's result, after checking which of the two kernels it launched."""
+    fn = jet_layernorm.layernorm_jet
+    before = fn.launches, fn.launches_streamed
+    got = fn(p, x, residual=r)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.launches_streamed) == (before[0] + 1, before[1] + streamed)
+    return got
+
+
+# 37 walkers of 6 tokens are 222 rows: no multiple of the streamed kernel's
+# rows per block.  It takes the production shapes with a residual, the generic
+# kernel everything else.
 @pytest.mark.parametrize("residual", [False, True])
 @pytest.mark.parametrize("c,e,t,feat", [(13, 1, 6, 256), (15, 3, 6, 256), (17, 1, 8, 64), (5, 2, 3, 512)])
 def test_layernorm_kernel(device, c, e, t, feat, residual):
     gen = torch.Generator(device=device).manual_seed(c + feat)
     x = random_jet(gen, device, 37, t, feat, c, e)
     r = random_jet(gen, device, 37, t, feat, c, e) if residual else None
-    p = {"scale": torch.randn(feat, generator=gen, device=device) * 0.3 + 1,
-         "bias": torch.randn(feat, generator=gen, device=device) * 0.1}
-    before = jet_layernorm.layernorm_jet.launches
-    got = jet_layernorm.layernorm_jet(p, x, residual=r)
-    torch.cuda.synchronize()
-    assert jet_layernorm.layernorm_jet.launches == before + 1
+    p = layernorm_params(gen, device, feat)
+    streamed = residual and (feat, c, e) in ((256, 13, 1), (256, 15, 3))
+    got = run_layernorm(p, x, r, streamed)
     assert_close(got, jet_layernorm.layernorm_jet_plain(p, x, residual=r))
+
+
+@pytest.mark.parametrize("c,e", [(13, 1), (15, 3)])
+def test_layernorm_kernel_production_rows(device, c, e):
+    gen = torch.Generator(device=device).manual_seed(c)
+    x, r = (random_jet(gen, device, 3360, 6, 256, c, e) for _ in range(2))
+    p = layernorm_params(gen, device, 256)
+    got = run_layernorm(p, x, r, streamed=True)
+    assert_close(got, jet_layernorm.layernorm_jet_plain(p, x, residual=r))
+
+
+@pytest.mark.parametrize("residual", [False, True])  # the generic kernel, the streamed kernel
+def test_layernorm_kernels_keep_centred_moments(device, residual):
+    """Rows with a mean of 100 and a spread of 1, against float64 on the same inputs.
+
+    The float32 plain version stays under 5e-6 of each field's largest value
+    there; a one-pass variance would be off by about 1e-3.
+    """
+    c, e = 15, 3
+    gen = torch.Generator(device=device).manual_seed(11)
+    x = Jet(*(v + 100 for v in random_jet(gen, device, 37, 6, 256, c, e)))
+    r = random_jet(gen, device, 37, 6, 256, c, e) if residual else None
+    p = layernorm_params(gen, device, 256)
+    got = run_layernorm(p, x, r, streamed=residual)
+    want = jet_layernorm.layernorm_jet_plain(
+        {k: v.double() for k, v in p.items()}, Jet(*(v.double() for v in x)),
+        residual=Jet(*(v.double() for v in r)) if residual else None,
+    )
+    assert_close(got, want)
 
 
 @pytest.mark.parametrize("c,e,t,feat,heads", [(13, 1, 6, 256, 4), (15, 3, 6, 256, 4), (17, 1, 8, 64, 4)])
