@@ -22,7 +22,22 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
    kernel built for this shape (tensor cores, tiled, streamed);
 5. end to end: local energy and observables of the 3360 stored walkers through
    the kernels and through the plain versions, on the card; the batch means
-   and the median walker must agree to 1e-4 of each observable's RMS.
+   and the median walker must agree to 1e-4 of each observable's RMS;
+6. train: the training CLI resumes ``prod_r4`` under KFAC with its stored
+   curvature (step 20000 on entry, 20010 on exit) for 10 iterations at batch
+   3360, L^2 on, bf16 sweep; the mean energy must lie within 0.005 of 6.8681
+   with L^2 < 0.2, every step must keep ``lr^2 coeff^2 d^T F d`` within the
+   norm constraint, and the launch counts must be 10 x those of one local
+   energy (no burn-in, no probe).  On the trained walkers the kernel path's
+   median walker must lie within 1e-4 of the RMS of the plain path's and each
+   batch mean within 5% of its standard error of a float64 local energy's,
+   the stored weights must read as stale, and one KFAC step with the kernel
+   path's local energy must lie no farther from the step with the float64 one
+   than twice the plain float32 path's (the kernel-vs-plain distances are
+   printed).  Then 2 Adam iterations from the same checkpoint, which must drop
+   the KFAC state with ``validate_opt_state``'s warning and stay finite.  It
+   prints the iteration's median time, its split (sweep, local energy, forward
+   with its two backward passes, KFAC update) and the peak memory.
 
 The line before the last is the kernel table; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -30,7 +45,9 @@ The line before the last is the kernel table; the last line is
 
 from __future__ import annotations
 
+import copy
 import json
+import logging
 import math
 import statistics
 import subprocess
@@ -49,6 +66,11 @@ KERNEL_TOL = 2e-5  # max |kernel - plain| / max |plain| per output field
 END_TO_END_TOL = 1e-4
 ANCHOR_ENERGY, ANCHOR_TOL = 6.8681, 0.005
 ITERATIONS = 20
+# Training resumes prod_r4's KfacState at step 20000.
+RESUME_STEP, TRAIN_ITERATIONS, ADAM_ITERATIONS = 20000, 10, 2
+# After training, each batch mean through the kernels within this share of its
+# standard error of the float64 batch mean.
+MEAN_SHIFT_SEM = 0.05
 # The jet LayerNorm takes under half a millisecond, and the host's work before
 # its launch an eighth to a sixth of that (measured on an H100 host): it is
 # timed over this many calls in a row.
@@ -388,45 +410,23 @@ def phase_slice(workdir: Path) -> dict:
     return counts
 
 
-def phase_end_to_end(device) -> None:
-    """Observables of the stored walkers through the kernels and the plain versions."""
-    import yaml
+def path_agreement(model, system, data) -> tuple[dict, list]:
+    """Observables of ``data`` through the kernels against the plain versions.
 
-    from deephall_tpu_torch import mcmc, train
-    from deephall_tpu_torch.config import Config
+    A walker near a node or a pole amplifies float32 rounding in its second
+    derivatives by the conditioning of its orbital matrix, on either path, so
+    single walkers may differ by far more than the kernels do (measured on the
+    H100: one walker's L^2 of ~16 moved by 0.25).  The gate therefore reads the
+    batch: the shift of the batch mean and the median per-walker deviation,
+    each relative to the observable's RMS over the walkers.
+    """
     from deephall_tpu_torch.hamiltonian import forward_laplacian_local_energy
-    from deephall_tpu_torch.log import LogManager
-    from deephall_tpu_torch.networks import make_network
-    from deephall_tpu_torch.weights import load_flax
 
-    cfg = Config.from_dict(yaml.safe_load((REPO / "artifacts/prod_r4/config.yml").read_text()))
-    _, state, _ = LogManager.restore_checkpoint(REPO / "artifacts/prod_r4/ckpt_019999.npz")
-    model = make_network(cfg.system, cfg.network)
-    load_flax(model, state.params)
-    model.to(device).requires_grad_(False)
-    data = torch.as_tensor(state.data, device=device)
-    local_energy = {
-        kernels: forward_laplacian_local_energy(model, cfg.system, kernels=kernels)
-        for kernels in (True, False)
-    }
-    sweep = mcmc.make_mcmc_step(lambda x: model(x, train.sweep_dtype()), steps=cfg.mcmc.steps)
-    gen = torch.Generator(device=device).manual_seed(0)
-    out, timing = {}, {}
+    out = {}
     with torch.no_grad():
-        for kernels, fn in local_energy.items():
-            el, obs = fn(data)
+        for kernels in (True, False):
+            el, obs = forward_laplacian_local_energy(model, system, kernels=kernels)(data)
             out[kernels] = {"energy": el, **obs}
-        # Where an iteration's time goes: the local energy on each path, and
-        # one sweep of cfg.mcmc.steps moves.
-        timing["local_energy_kernels_ms"] = cuda_ms(lambda: local_energy[True](data), reps=5)
-        timing["local_energy_plain_ms"] = cuda_ms(lambda: local_energy[False](data), reps=5)
-        timing["sweep_ms"] = cuda_ms(lambda: sweep(data, float(state.mcmc_width), gen), reps=5)
-    # A walker near a node or a pole amplifies float32 rounding in its second
-    # derivatives by the conditioning of its orbital matrix, on either path, so
-    # single walkers may differ by far more than the kernels do (measured on
-    # the H100: one walker's L^2 of ~16 moved by 0.25).  The gate therefore
-    # reads the batch: the shift of the batch mean and the median per-walker
-    # deviation, each relative to the observable's RMS over the walkers.
     report = {}
     for key, got in out[True].items():
         want = out[False][key]
@@ -440,14 +440,307 @@ def phase_end_to_end(device) -> None:
             p99_dev_rel=dev.quantile(0.99).item() / rms,
             max_abs_err=dev.max().item(),
         )
-    emit(phase="end_to_end", walkers=int(data.shape[0]), tolerance=END_TO_END_TOL,
-         fields=report, **timing)
     bad = [
         k for k, v in report.items()
         if not (v["mean_shift_rel"] <= END_TO_END_TOL and v["median_dev_rel"] <= END_TO_END_TOL)
     ]
+    return report, bad
+
+
+def restored_model(ckpt: Path, device):
+    """The prod_r4 configuration and a model on ``device`` with ``ckpt``'s parameters."""
+    import yaml
+
+    from deephall_tpu_torch.config import Config
+    from deephall_tpu_torch.log import LogManager
+    from deephall_tpu_torch.networks import make_network
+    from deephall_tpu_torch.weights import load_flax
+
+    cfg = Config.from_dict(yaml.safe_load((REPO / "artifacts/prod_r4/config.yml").read_text()))
+    _, state, _ = LogManager.restore_checkpoint(ckpt)
+    model = make_network(cfg.system, cfg.network)
+    load_flax(model, state.params)
+    return cfg, model.to(device), state
+
+
+def phase_end_to_end(device) -> None:
+    """Observables of the stored walkers through the kernels and the plain versions."""
+    from deephall_tpu_torch import mcmc, train
+    from deephall_tpu_torch.hamiltonian import forward_laplacian_local_energy
+
+    cfg, model, state = restored_model(REPO / "artifacts/prod_r4/ckpt_019999.npz", device)
+    model.requires_grad_(False)
+    data = torch.as_tensor(state.data, device=device)
+    report, bad = path_agreement(model, cfg.system, data)
+    local_energy = {
+        kernels: forward_laplacian_local_energy(model, cfg.system, kernels=kernels)
+        for kernels in (True, False)
+    }
+    sweep = mcmc.make_mcmc_step(lambda x: model(x, train.sweep_dtype()), steps=cfg.mcmc.steps)
+    gen = torch.Generator(device=device).manual_seed(0)
+    timing = {}
+    with torch.no_grad():
+        # Where an iteration's time goes: the local energy on each path, and
+        # one sweep of cfg.mcmc.steps moves.
+        timing["local_energy_kernels_ms"] = cuda_ms(lambda: local_energy[True](data), reps=5)
+        timing["local_energy_plain_ms"] = cuda_ms(lambda: local_energy[False](data), reps=5)
+        timing["sweep_ms"] = cuda_ms(lambda: sweep(data, float(state.mcmc_width), gen), reps=5)
+    emit(phase="end_to_end", walkers=int(data.shape[0]), tolerance=END_TO_END_TOL,
+         fields=report, **timing)
     if bad:
         raise AssertionError(f"end_to_end: {bad} differ by more than {END_TO_END_TOL}")
+
+
+class WarningLog(logging.Filter):
+    """Keeps the messages of the ``deephall`` logger's warnings (a filter on
+    the logger survives ``init_logging``, which replaces its handlers)."""
+
+    def __init__(self):
+        super().__init__()
+        self.messages: list[str] = []
+
+    def filter(self, record):
+        if record.levelno >= logging.WARNING:
+            self.messages.append(record.getMessage())
+        return True
+
+
+def train_cli(workdir: Path, optimizer: str, iterations: int) -> tuple[list, list]:
+    """The training CLI resuming ``prod_r4``; returns its history and its warnings."""
+    from deephall_tpu_torch import train
+
+    log = WarningLog()
+    logger = logging.getLogger("deephall")
+    logger.addFilter(log)
+    try:
+        history = train.cli([
+            "--yml", str(REPO / "artifacts/prod_r4/config.yml"),
+            f"optim.optimizer={optimizer}",
+            f"log.restore_path={REPO / 'artifacts/prod_r4/ckpt_019999.npz'}",
+            f"log.save_path={workdir}",
+            f"optim.iterations={RESUME_STEP + iterations}",
+        ])
+    finally:
+        logger.removeFilter(log)
+    torch.cuda.synchronize()
+    return history, log.messages
+
+
+def relative_l2(got: dict, want: dict) -> float:
+    num = sum(float((got[k].double() - want[k].double()).square().sum()) for k in want)
+    den = sum(float(want[k].double().square().sum()) for k in want)
+    return math.sqrt(num / den)
+
+
+def training_paths(model, stale_model, system, data) -> dict:
+    """``{path: {observable: per-walker values}}`` for the kernels, the plain
+    versions, the plain versions in float64 and the plain versions with
+    ``stale_model``'s weights."""
+    from deephall_tpu_torch.hamiltonian import forward_laplacian_local_energy
+
+    out = {}
+    with torch.no_grad():
+        for name, net, kernels, x in (
+            ("kernels", model, True, data), ("plain", model, False, data),
+            ("float64", copy.deepcopy(model).double(), False, data.double()),
+            ("stale", stale_model, False, data),
+        ):
+            el, obs = forward_laplacian_local_energy(net, system, kernels=kernels)(x)
+            out[name] = {"energy": el, **obs}
+    return out
+
+
+def training_agreement(paths: dict) -> dict:
+    """Per observable: the kernel path against the plain path (relative to the
+    RMS), each float32 path's batch-mean error against float64 (relative to the
+    batch mean's standard error) and the stale weights' median deviation.
+
+    A walker near a node amplifies float32 rounding on either path, and in a
+    batch mean one such walker can move the two float32 paths apart by more
+    than 1e-4 of the RMS while both stay far inside the mean's statistical
+    error; float64 says which path is off and by how much.
+    """
+    report = {}
+    for key in paths["float64"]:
+        vals = {name: v[key].real.double() for name, v in paths.items()}
+        truth = vals["float64"]
+        rms = truth.square().mean().sqrt().item()
+        sem = truth.std().item() / math.sqrt(truth.numel())
+        mean = {name: v.mean().item() for name, v in vals.items()}
+        report[key] = dict(
+            rms=rms, sem=sem,
+            kernels_vs_plain_mean_shift_rel=abs(mean["kernels"] - mean["plain"]) / rms,
+            kernels_vs_plain_median_dev_rel=(vals["kernels"] - vals["plain"]).abs().median().item() / rms,
+            kernels_vs_float64_mean_shift_sem=abs(mean["kernels"] - mean["float64"]) / max(sem, 1e-30),
+            plain_vs_float64_mean_shift_sem=abs(mean["plain"] - mean["float64"]) / max(sem, 1e-30),
+            stale_vs_plain_median_dev_rel=(vals["stale"] - vals["plain"]).abs().median().item() / rms,
+        )
+    return report
+
+
+def kfac_step_updates(cfg, model, data, opt_state, paths: dict) -> dict:
+    """One KFAC step from the same state with the local energy of the kernel,
+    plain and float64 paths: relative L2 distances between the updates."""
+    from deephall_tpu_torch import loss
+    from deephall_tpu_torch.optimizers import kfac
+
+    params = dict(model.named_parameters())
+    saved = {k: p.detach().clone() for k, p in params.items()}
+    specs = kfac.discover(model, sum(cfg.system.nspins))
+    updates = {}
+    for name in ("kernels", "plain", "float64"):
+        obs = {k: v.to(torch.complex64 if v.is_complex() else torch.float32)
+               for k, v in paths[name].items()}
+        el = obs.pop("energy")
+        _, grads, inputs, dy = loss.gradient_and_capture(model, cfg.system, data, el, obs)
+        kfac.kfac_update(cfg.optim.kfac, specs, params, opt_state, grads, inputs, dy)
+        updates[name] = {k: p.detach() - saved[k] for k, p in params.items()}
+        with torch.no_grad():
+            for k, p in params.items():
+                p.copy_(saved[k])
+    return {f"{a}_vs_{b}": relative_l2(updates[a], updates[b])
+            for a, b in (("kernels", "plain"), ("kernels", "float64"), ("plain", "float64"))}
+
+
+def phase_train(workdir: Path, device) -> dict:
+    """KFAC training resuming the converged N=6 state through the CLI, at batch 3360."""
+    from deephall_tpu_torch import loss, mcmc, optimizers, train
+    from deephall_tpu_torch.hamiltonian import forward_laplacian_local_energy
+    from deephall_tpu_torch.log import LogManager
+    from deephall_tpu_torch.optimizers import kfac
+    from deephall_tpu_torch.types import AdamState, KfacState
+    from deephall_tpu_torch.weights import flatten
+
+    artifact = REPO / "artifacts/prod_r4/ckpt_019999.npz"
+    _, start, _ = LogManager.restore_checkpoint(artifact)
+    if not isinstance(start.opt_state, KfacState) or int(start.opt_state.step) != RESUME_STEP:
+        raise AssertionError("train: the stored KfacState did not load")
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    wall = time.perf_counter()
+    history, warnings = train_cli(workdir / "kfac", "kfac", TRAIN_ITERATIONS)
+    wall = time.perf_counter() - wall
+    counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    last = workdir / "kfac" / f"ckpt_{RESUME_STEP + TRAIN_ITERATIONS - 1:06d}.npz"
+    cfg, model, final = restored_model(last, device)
+    layers = cfg.network.psiformer.num_layers
+    expected = {
+        "jet_layernorm": TRAIN_ITERATIONS * 2 * layers,
+        "jet_attention": TRAIN_ITERATIONS * layers,
+        "jet_gemm": TRAIN_ITERATIONS * 2 * layers,
+        "jet_softmax_values": TRAIN_ITERATIONS * layers,
+        "jet_gemm_tensor_core": TRAIN_ITERATIONS * 2 * layers,
+        "jet_softmax_values_tiled": TRAIN_ITERATIONS * layers,
+        "jet_layernorm_streamed": TRAIN_ITERATIONS * 2 * layers,
+    }
+    energies = np.array([row["energy"].real for row in history])
+    l_square = np.array([row["angular_momentum_square"] for row in history])
+    # lr^2 coeff^2 d^T F d: the step's quadratic norm, held to the constraint.
+    step_norms = [row["learning_rate"] ** 2 * row["norm_coefficient"] ** 2 * row["quadratic_norm"]
+                  for row in history]
+    before, after = flatten(start.params), flatten(final.params)
+    moved = math.sqrt(sum(float(np.square(after[k] - before[k]).sum()) for k in before)
+                      / sum(float(np.square(before[k]).sum()) for k in before))
+
+    # On the trained walkers: the local energy through the kernels, through the
+    # plain versions, through the plain versions in float64 (the reference) and
+    # through the plain versions with the weights from before training.
+    data = torch.as_tensor(final.data, device=device)
+    params = dict(model.named_parameters())
+    opt_state = optimizers.state_to(final.opt_state, device)
+    paths = training_paths(model, restored_model(artifact, device)[1], cfg.system, data)
+    fields = training_agreement(paths)
+    # One KFAC step from the final state with each path's local energy.
+    updates = kfac_step_updates(cfg, model, data, opt_state, paths)
+
+    local_energy = forward_laplacian_local_energy(model, cfg.system)
+    sweep = mcmc.make_mcmc_step(lambda x: model(x, train.sweep_dtype()), steps=cfg.mcmc.steps)
+    gen = torch.Generator(device=device).manual_seed(0)
+    with torch.no_grad():
+        el, obs = local_energy(data)
+    _, grads, inputs, dy = loss.gradient_and_capture(model, cfg.system, data, el, obs)
+    specs = kfac.discover(model, sum(cfg.system.nspins))
+
+    def kfac_update():
+        kfac.kfac_update(cfg.optim.kfac, specs, params, opt_state, grads, inputs, dy)
+
+    saved = {k: p.detach().clone() for k, p in params.items()}
+
+    with torch.no_grad():
+        split = dict(
+            sweep_ms=cuda_ms(lambda: sweep(data, float(final.mcmc_width), gen), reps=5),
+            local_energy_ms=cuda_ms(lambda: local_energy(data), reps=5),
+        )
+    split["forward_and_two_backward_ms"] = cuda_ms(
+        lambda: loss.gradient_and_capture(model, cfg.system, data, el, obs), reps=5)
+    split["kfac_update_ms"] = cuda_ms(kfac_update, reps=5)
+    with torch.no_grad():
+        for k, p in params.items():
+            p.copy_(saved[k])
+
+    reset_counts()
+    adam_history, adam_warnings = train_cli(workdir / "adam", "adam", ADAM_ITERATIONS)
+    _, adam_final, _ = LogManager.restore_checkpoint(
+        workdir / "adam" / f"ckpt_{RESUME_STEP + ADAM_ITERATIONS - 1:06d}.npz")
+    adam_energies = np.array([row["energy"].real for row in adam_history])
+    dropped = "Restored opt_state (KfacState) does not match optimizer adam; reinitialising"
+
+    step_times = [row["step_time"] for row in history]
+    result = dict(
+        iterations=len(history),
+        kfac_step_entry=int(start.opt_state.step), kfac_step_exit=int(final.opt_state.step),
+        kfac_weight_exit=float(final.opt_state.weight),
+        learning_rate=history[0]["learning_rate"],
+        mean_energy=float(energies.mean()),
+        energy_sem=float(energies.std(ddof=1) / math.sqrt(len(energies))),
+        mean_l_square=float(l_square.mean()),
+        mean_variance=float(np.mean([row["variance"] for row in history])),
+        norm_coefficients=[row["norm_coefficient"] for row in history],
+        step_norm_over_constraint=max(step_norms) / cfg.optim.kfac.norm_constraint,
+        params_moved_rel_l2=moved,
+        step_time_median_ms=statistics.median(step_times) * 1e3,
+        step_times_ms=[t * 1e3 for t in step_times],
+        split_ms=split,
+        wall_s=wall,
+        peak_memory_gb=peak_gb,
+        launches=counts, expected_launches=expected,
+        warnings=warnings,
+        update_rel_l2=updates,
+        after_training_fields=fields,
+        adam=dict(iterations=len(adam_history), energies=adam_energies.tolist(),
+                  state=type(adam_final.opt_state).__name__,
+                  count=int(adam_final.opt_state.count) if isinstance(adam_final.opt_state, AdamState) else None,
+                  warnings=adam_warnings),
+    )
+    emit(phase="train", **result)
+    if len(history) != TRAIN_ITERATIONS or not np.isfinite(energies).all():
+        raise AssertionError("train: missing iterations or non-finite energy")
+    if result["kfac_step_exit"] != RESUME_STEP + TRAIN_ITERATIONS or not result["kfac_weight_exit"] > 0.999:
+        raise AssertionError("train: the restored KfacState was not the one trained on")
+    if abs(result["mean_energy"] - ANCHOR_ENERGY) > ANCHOR_TOL or not result["mean_l_square"] < 0.2:
+        raise AssertionError(f"train: energy {result['mean_energy']} or L^2 {result['mean_l_square']} off")
+    if not result["step_norm_over_constraint"] <= 1 + 1e-5:
+        raise AssertionError("train: a step broke the norm constraint")
+    if not moved > 0:
+        raise AssertionError("train: the parameters did not move")
+    if counts != expected:
+        raise AssertionError(f"train: launch counts {counts} != expected {expected}")
+    bad = [k for k, v in fields.items()
+           if not (v["kernels_vs_plain_median_dev_rel"] <= END_TO_END_TOL
+                   and v["kernels_vs_float64_mean_shift_sem"] <= MEAN_SHIFT_SEM)]
+    if bad:
+        raise AssertionError(f"train: after the updates the kernel path is off in {bad}")
+    energy = fields["energy"]
+    if not energy["stale_vs_plain_median_dev_rel"] >= 10 * energy["kernels_vs_plain_median_dev_rel"]:
+        raise AssertionError("train: the comparison cannot tell the trained weights from the stored")
+    if not updates["kernels_vs_float64"] <= 2 * updates["plain_vs_float64"]:
+        raise AssertionError(f"train: the kernel path's KFAC update is off: {updates}")
+    if (len(adam_history) != ADAM_ITERATIONS or not np.isfinite(adam_energies).all()
+            or dropped not in adam_warnings or result["adam"]["count"] != ADAM_ITERATIONS):
+        raise AssertionError(f"train: Adam {result['adam']}")
+    return counts
 
 
 def main() -> int:
@@ -487,7 +780,8 @@ def main() -> int:
     kernels = phase_kernels(device, rates)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
         counts = phase_slice(Path(workdir))
-    phase_end_to_end(device)
+        phase_end_to_end(device)
+        train_counts = phase_train(Path(workdir), device)
 
     sources = {
         "jet_layernorm": ("deephall_tpu_torch/csrc/jet_layernorm.cu", "deephall_tpu/ops/jet_layernorm.py:58"),
@@ -499,7 +793,8 @@ def main() -> int:
     for kernel, (source, replaces) in sources.items():
         mode = f"C{MODES[0][0]}E{MODES[0][1]}"
         row = dict(name=kernel, route="cuda", source=source, replaces=replaces,
-                   launches=counts[kernel], **table_numbers(kernels[(kernel, mode)]))
+                   launches=counts[kernel], launches_train=train_counts[kernel],
+                   **table_numbers(kernels[(kernel, mode)]))
         if kernel == "jet_layernorm":
             row["launches_streamed"] = counts["jet_layernorm_streamed"]
         if kernel == "jet_gemm":

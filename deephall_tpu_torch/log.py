@@ -9,10 +9,20 @@ The files are those of the JAX package, byte for byte in layout:
 * ``train_stats.csv`` with a header on creation and a mirrored line on stderr;
 * a ``config.yml`` sidecar stamped with the git commit.
 
-Restoring never unpickles ``opt_state``: a JAX checkpoint pickles the JAX
-package's KFAC state there, and unpickling it would import that package and
-JAX.  ``params`` is unpickled by :class:`_NumpyUnpickler`, which refuses every
-class outside NumPy and the builtins.  Paths are local.
+``params`` is unpickled by :class:`_NumpyUnpickler`, which refuses every
+class outside NumPy and the builtins.  ``opt_state`` goes both ways:
+
+* the port writes it as builtins and NumPy arrays only, a dict tagged
+  ``{"optimizer": "kfac" | "adam", ...}`` with the state's fields, so the JAX
+  package unpickles it and its ``validate_opt_state`` drops it with a warning;
+* :class:`_OptStateUnpickler` reads the port's dict, and maps the JAX
+  package's ``deephall_tpu.optimizers.kfac.KfacState`` and optax's Adam state
+  classes (by class name) onto :class:`~deephall_tpu_torch.types.KfacState` and
+  :class:`~deephall_tpu_torch.types.AdamState`, importing neither; any other
+  class is refused, and a refused or unreadable state is restored as ``None``
+  with a warning, so the optimizer is reinitialised.
+
+Paths are local.
 """
 
 from __future__ import annotations
@@ -32,7 +42,7 @@ from pathlib import Path
 import numpy as np
 
 from deephall_tpu_torch.config import Config, to_yaml
-from deephall_tpu_torch.types import CheckpointState
+from deephall_tpu_torch.types import AdamState, CheckpointState, KfacState
 
 logger = logging.getLogger("deephall")
 
@@ -65,7 +75,28 @@ class _NumpyUnpickler(pickle.Unpickler):
         raise pickle.UnpicklingError(f"refusing to unpickle {full}")
 
 
-def _read_object(zf: zipfile.ZipFile, key: str):
+class _OptaxCounter(tuple):
+    """optax's schedule counter beside its Adam state (``ScaleByScheduleState``)."""
+
+    def __new__(cls, *fields):
+        return tuple.__new__(cls, fields)
+
+
+class _OptStateUnpickler(_NumpyUnpickler):
+    """Also maps the JAX package's and optax's optimizer states onto the port's."""
+
+    _OPTAX = {"ScaleByAdamState": AdamState, "ScaleByScheduleState": _OptaxCounter,
+              "EmptyState": _OptaxCounter}
+
+    def find_class(self, module: str, name: str):
+        if (module, name) == ("deephall_tpu.optimizers.kfac", "KfacState"):
+            return KfacState
+        if module.split(".")[0] == "optax" and name in self._OPTAX:
+            return self._OPTAX[name]
+        return super().find_class(module, name)
+
+
+def _read_object(zf: zipfile.ZipFile, key: str, unpickler=_NumpyUnpickler):
     """The object stored under ``key`` of an ``.npz``, unpickled restrictively."""
     with zf.open(f"{key}.npy") as fp:
         version = np.lib.format.read_magic(fp)
@@ -73,8 +104,39 @@ def _read_object(zf: zipfile.ZipFile, key: str):
             np.lib.format.read_array_header_1_0(fp)
         else:
             np.lib.format.read_array_header_2_0(fp)
-        arr = _NumpyUnpickler(io.BytesIO(fp.read())).load()
+        arr = unpickler(io.BytesIO(fp.read())).load()
     return arr.tolist() if isinstance(arr, np.ndarray) else arr
+
+
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if hasattr(tree, "detach"):
+        return tree.detach().cpu().numpy()
+    return np.asarray(tree)
+
+
+def encode_opt_state(opt_state):
+    """The optimizer state as builtins and NumPy arrays (``None`` stays ``None``)."""
+    if opt_state is None:
+        return None
+    kind = {KfacState: "kfac", AdamState: "adam"}[type(opt_state)]
+    return {"optimizer": kind, **_to_numpy(opt_state._asdict())}
+
+
+def decode_opt_state(obj):
+    """The port's state of what :class:`_OptStateUnpickler` returned.
+
+    The port's tagged dict and a JAX ``KfacState`` become the port's classes,
+    optax's ``(ScaleByAdamState, ScaleByScheduleState)`` its ``AdamState``;
+    anything else is returned as it is, for ``validate_opt_state`` to drop.
+    """
+    if isinstance(obj, dict) and obj.get("optimizer") in ("kfac", "adam"):
+        cls = KfacState if obj["optimizer"] == "kfac" else AdamState
+        return cls(**{f: obj[f] for f in cls._fields})
+    if isinstance(obj, (tuple, list)) and obj and isinstance(obj[0], AdamState):
+        return obj[0]
+    return obj
 
 
 class StatsWriter:
@@ -163,7 +225,7 @@ class LogManager:
                 step=step,
                 params=_object_array(state.params),
                 data=np.asarray(data),
-                opt_state=_object_array(state.opt_state),
+                opt_state=_object_array(encode_opt_state(state.opt_state)),
                 mcmc_width=np.asarray(state.mcmc_width, dtype=np.float32).reshape(()),
                 **extras,
             )
@@ -185,13 +247,19 @@ class LogManager:
     def restore_checkpoint(ckpt: str | Path) -> tuple[int, CheckpointState, dict]:
         """Restore one checkpoint file: ``(next_step, state, adapt)``.
 
-        ``state.opt_state`` is always ``None``: it is never read (see the module
-        docstring).  ``adapt`` holds ``pmoves`` and ``t`` when present.
+        ``state.opt_state`` is the port's optimizer state with NumPy leaves, or
+        ``None`` when it cannot be read (see the module docstring).  ``adapt``
+        holds ``pmoves`` and ``t`` when present.
         """
         ckpt_path = Path(ckpt)
         blob = ckpt_path.read_bytes()
         with zipfile.ZipFile(io.BytesIO(blob)) as zf:
             params = _read_object(zf, "params")
+            try:
+                opt_state = decode_opt_state(_read_object(zf, "opt_state", _OptStateUnpickler))
+            except (pickle.UnpicklingError, AttributeError, EOFError, KeyError, TypeError, ValueError) as e:
+                logger.warning("Could not unpickle opt_state (%s); reinitialising optimizer", e)
+                opt_state = None
         adapt: dict = {}
         with np.load(io.BytesIO(blob), allow_pickle=False) as f:
             step = int(f["step"]) + 1
@@ -203,7 +271,7 @@ class LogManager:
         if data.ndim == 4:  # older layouts with a leading device axis
             data = data.reshape(-1, *data.shape[-2:])
         logger.info("Restored checkpoint %s", ckpt_path)
-        return step, CheckpointState(params, data, None, np.float32(mcmc_width)), adapt
+        return step, CheckpointState(params, data, opt_state, np.float32(mcmc_width)), adapt
 
     @contextmanager
     def create_writer(self) -> Generator[StatsWriter, None, None]:

@@ -1,9 +1,20 @@
-"""Clipped-energy statistics (port of ``deephall_tpu/loss.py``, ``ENERGY_DIFF`` mode).
+"""Clipped-energy statistics and the energy gradient (port of ``deephall_tpu/loss.py``).
 
 IQR clipping of the local energy (real and imaginary parts separately, median
 +- 100 IQR), the optional Lz / L^2 penalty terms folded into the per-walker
-differences, and NaN-resistant means for the logged statistics.  The gradient
-modes belong to the training slice.
+differences, and NaN-resistant means for the logged statistics.
+
+The gradient modes take the local energy under ``no_grad`` (through the jet
+kernels) and one float32 forward of ``log psi`` with autograd:
+``ENERGY_GRAD`` is one backward of ``sum(w.real Re log psi + w.imag Im log psi)``
+with ``w = vjp_weights(diff)``, ``SR_F_VECTOR`` adds the imaginary part from a
+second backward under ``(w.imag, -w.real)``, and
+:func:`make_loss_and_capture_fn` runs the forward inside
+:func:`~deephall_tpu_torch.networks.blocks.kfac_capture` and takes the
+exact-Fisher output sensitivities from a second backward under the cotangent
+``(sqrt 2, 0)`` on ``(Re, Im)``.  Gradients are ``{dotted.name: tensor}`` in
+the model's parameter order.  The excited-state overlap terms
+(``fixed_state_log_ratios``) are not ported.
 """
 
 from __future__ import annotations
@@ -14,6 +25,7 @@ import torch
 
 from deephall_tpu_torch.config import System
 from deephall_tpu_torch.hamiltonian import forward_laplacian_local_energy
+from deephall_tpu_torch.networks.blocks import FISHER_COTANGENT, kfac_capture
 from deephall_tpu_torch.types import LossStats
 
 
@@ -84,17 +96,85 @@ def stats_and_clipped_diff(
     return stats, diff
 
 
+def vjp_weights(diff: torch.Tensor) -> torch.Tensor:
+    """Cotangent weights ``w_i = 2 (E_L,i - E_clip) / count``; NaN walkers weigh 0."""
+    valid = ~torch.isnan(diff)
+    count = torch.clamp(valid.sum(), min=1)
+    return torch.where(valid, torch.nan_to_num(diff), torch.zeros_like(diff)) * (2.0 / count)
+
+
+def _pullback(logpsi: torch.Tensor, w_re, w_im, inputs: list, retain_graph: bool):
+    """``d/d inputs`` of ``sum(w_re Re log psi + w_im Im log psi)``; unused inputs get 0."""
+    out = (logpsi.real * w_re + logpsi.imag * w_im).sum()
+    grads = torch.autograd.grad(out, inputs, retain_graph=retain_graph, allow_unused=True)
+    return [torch.zeros_like(x) if g is None else g for x, g in zip(inputs, grads)]
+
+
+def _nan_to_num(names, grads) -> dict[str, torch.Tensor]:
+    return {name: torch.nan_to_num(g) for name, g in zip(names, grads)}
+
+
+def gradient_and_capture(model, system: System, data: torch.Tensor, el, other_observables):
+    """The float32 forward of ``log psi`` in the capture context and its two backward passes.
+
+    Returns ``(stats, grads, inputs, dy)``: the energy gradient, and every
+    recorded layer's input and Fisher output sensitivity, keyed by path.
+    """
+    params = dict(model.named_parameters())
+    with torch.enable_grad(), kfac_capture(model) as capture:
+        logpsi = model(data)
+    stats, diff = stats_and_clipped_diff(system, el, other_observables)
+    w = vjp_weights(diff)
+    grads = _pullback(logpsi, w.real, w.imag, list(params.values()), retain_graph=True)
+    paths = list(capture.outputs)
+    fisher = torch.full_like(w.real, FISHER_COTANGENT)
+    dy = _pullback(logpsi, fisher, torch.zeros_like(w.imag),
+                   [capture.outputs[p] for p in paths], retain_graph=False)
+    return stats, _nan_to_num(params, grads), capture.inputs, dict(zip(paths, dy))
+
+
 def make_loss_fn(model, system: System, mode: LossMode = LossMode.ENERGY_DIFF):
-    """``loss_fn(data) -> (stats, diff)`` for ``mode = ENERGY_DIFF``."""
-    if mode != LossMode.ENERGY_DIFF:
-        raise NotImplementedError(
-            f"{mode} is not ported yet: ROADMAP queue 1, item 'Training with Adam'."
-        )
+    """``loss_fn(data) -> (stats, diff_or_grads)`` for the given mode.
+
+    ``ENERGY_DIFF`` returns the clipped per-walker differences, ``ENERGY_GRAD``
+    the real gradients and ``SR_F_VECTOR`` the complex tangents, as
+    ``{dotted.name: tensor}``.
+    """
     local_energy = forward_laplacian_local_energy(model, system)
 
     def loss_fn(data: torch.Tensor):
         with torch.no_grad():
             el, other_observables = local_energy(data)
-            return stats_and_clipped_diff(system, el, other_observables)
+            if mode == LossMode.ENERGY_DIFF:
+                return stats_and_clipped_diff(system, el, other_observables)
+        params = dict(model.named_parameters())
+        with torch.enable_grad():
+            logpsi = model(data)
+        stats, diff = stats_and_clipped_diff(system, el, other_observables)
+        w = vjp_weights(diff)
+        sr = mode == LossMode.SR_F_VECTOR
+        # Re[conj(grad logpsi) w] = grad(Re psi) . Re w + grad(Im psi) . Im w
+        g_re = _pullback(logpsi, w.real, w.imag, list(params.values()), retain_graph=sr)
+        if not sr:
+            return stats, _nan_to_num(params, g_re)
+        # Im[conj(grad logpsi) w] = grad(Re psi) . Im w - grad(Im psi) . Re w
+        g_im = _pullback(logpsi, w.imag, -w.real, list(params.values()), retain_graph=False)
+        return stats, {
+            name: torch.complex(torch.nan_to_num(a), torch.nan_to_num(b))
+            for name, a, b in zip(params, g_re, g_im)
+        }
 
     return loss_fn
+
+
+def make_loss_and_capture_fn(model, system: System):
+    """``fn(data) -> (stats, grads, inputs, dy)``: the energy gradient and the KFAC
+    capture from one shared forward (``deephall_tpu/loss.py:make_loss_and_capture_fn``)."""
+    local_energy = forward_laplacian_local_energy(model, system)
+
+    def fn(data: torch.Tensor):
+        with torch.no_grad():
+            el, other_observables = local_energy(data)
+        return gradient_and_capture(model, system, data, el, other_observables)
+
+    return fn

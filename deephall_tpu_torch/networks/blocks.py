@@ -4,8 +4,15 @@ Every module keeps the flax parameter names and shapes of the JAX package, so a
 checkpoint's parameter tree maps one to one onto the module state
 (:mod:`deephall_tpu_torch.weights`): ``DenseGeneral`` kernels are
 ``(*contracted_dims, *features)``, attention projections are named
-``query``/``key``/``value``/``out``, and so on.  The KFAC taps and sows of the
-JAX blocks belong to the training slice and are left out.
+``query``/``key``/``value``/``out``, and so on.
+
+KFAC curvature capture: inside :func:`kfac_capture`, every ``Dense``,
+``DenseGeneral`` and ``LayerNorm`` records its folded 2-D input ``x2d``
+(``x_hat`` before scale and bias for ``LayerNorm``) and its 2-D output ``y2d``
+(after the bias), walker-major ``[b * t, fan]``, keyed by the module path
+joined with ``/`` (the JAX package's ``KfacState`` keys).  ``y2d`` stays in the
+autograd graph, so the gradient with respect to it is the cotangent of the JAX
+package's zero output tap.  Outside the context nothing is recorded.
 
 The reduced-precision sweep passes its tower dtype explicitly: dense layers cast
 their float32 parameters to the activation dtype on the fly, and LayerNorm keeps
@@ -14,13 +21,52 @@ its statistics in float32, as ``blocks.tower_dtype`` does in the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import math
+from collections.abc import Iterator
 
 import torch
 from torch import nn
 
 from deephall_tpu_torch.config import OrbitalType
 from deephall_tpu_torch.geometry import chord_distances
+
+
+# Cotangent that turns output sensitivities into exact-Fisher factors: the
+# predictive distribution is a scalar Gaussian over Re log psi with variance
+# 1/2, so the Fisher is E[g g^T] with g = sqrt(2) d(Re log psi)/d(y).
+FISHER_COTANGENT = math.sqrt(2.0)
+
+
+class Capture:
+    """The recorded layers of one forward: ``inputs`` (detached) and ``outputs``
+    (in the graph), both ``{path: [rows, fan]}``."""
+
+    def __init__(self):
+        self.inputs: dict[str, torch.Tensor] = {}
+        self.outputs: dict[str, torch.Tensor] = {}
+
+
+@contextlib.contextmanager
+def kfac_capture(model: nn.Module) -> Iterator[Capture]:
+    """Record the inputs and outputs of ``model``'s dense and LayerNorm layers."""
+    capture = Capture()
+    layers = [(name.replace(".", "/"), module) for name, module in model.named_modules()
+              if isinstance(module, (Dense, DenseGeneral, LayerNorm))]
+    for path, module in layers:
+        module.kfac_record = (capture, path)
+    try:
+        yield capture
+    finally:
+        for _, module in layers:
+            module.kfac_record = None
+
+
+def _record(module: nn.Module, x2d: torch.Tensor, y2d: torch.Tensor) -> None:
+    if module.kfac_record is not None:
+        capture, path = module.kfac_record
+        capture.inputs[path] = x2d.detach()
+        capture.outputs[path] = y2d
 
 
 def _param(*shape: int) -> nn.Parameter:
@@ -50,6 +96,7 @@ class DenseGeneral(nn.Module):
         self.axis = tuple(axis)
         self.kernel = _param(*self.in_shape, *self.features)
         self.bias = _param(*self.features) if use_bias else None
+        self.kfac_record = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         axes = sorted(a % x.ndim for a in self.axis)
@@ -60,6 +107,7 @@ class DenseGeneral(nn.Module):
         y2d = x2d @ _cast(self.kernel.reshape(fan_in, -1), x)
         if self.bias is not None:
             y2d = y2d + _cast(self.bias.reshape(1, -1), y2d)
+        _record(self, x2d, y2d)
         return y2d.reshape(*batch_shape, *self.features)
 
 
@@ -70,12 +118,15 @@ class Dense(nn.Module):
         super().__init__()
         self.kernel = _param(in_features, features)
         self.bias = _param(features) if use_bias else None
+        self.kfac_record = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x @ _cast(self.kernel, x)
+        x2d = x.reshape(-1, x.shape[-1])
+        y2d = x2d @ _cast(self.kernel, x)
         if self.bias is not None:
-            y = y + _cast(self.bias, y)
-        return y
+            y2d = y2d + _cast(self.bias, y2d)
+        _record(self, x2d, y2d)
+        return y2d.reshape(*x.shape[:-1], y2d.shape[-1])
 
 
 class LayerNorm(nn.Module):
@@ -86,13 +137,17 @@ class LayerNorm(nn.Module):
         self.epsilon = epsilon
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = _param(features)
+        self.kfac_record = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         mean = xf.mean(dim=-1, keepdim=True)
         var = torch.square(xf - mean).mean(dim=-1, keepdim=True)
         x_hat = ((xf - mean) * torch.rsqrt(var + self.epsilon)).to(x.dtype)
-        return x_hat * _cast(self.scale, x) + _cast(self.bias, x)
+        x2d = x_hat.reshape(-1, x.shape[-1])
+        y2d = x2d * _cast(self.scale, x) + _cast(self.bias, x)
+        _record(self, x2d, y2d)
+        return y2d.reshape(x.shape)
 
 
 class MultiHeadAttention(nn.Module):

@@ -5,6 +5,12 @@ TPU has no complex LU.  Here ``torch.linalg.lu_factor_ex`` factors the complex
 batch directly (cuBLAS / cuSOLVER on the card, LAPACK on the CPU), and the
 sign and log-magnitude are read off the LU diagonal and the pivot parity, so a
 determinant and its solves share a single factorisation.
+
+:func:`slogdet` has a gradient, the JAX package's custom JVP
+``d log det A = tr(A^-1 dA)`` read backwards: its backward reuses the
+forward's LU for ``A^-H``, so neither the pivots nor the ``diag / |diag|``
+phase product are differentiated.  :func:`slogdet_solve` stays forward-only,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -26,10 +32,37 @@ def _slogdet_from_lu(lu: torch.Tensor, pivots: torch.Tensor):
     return parity * torch.prod(torch.sign(diag), dim=-1), logabs
 
 
+class _Slogdet(torch.autograd.Function):
+    """``(sign, log|det a|)`` with the backward of ``log det a = log|det a| + i arg``.
+
+    For a real loss ``L``, the cotangent of the complex ``log det`` is
+    ``c = dL/dlog|det| + i dL/darg`` with ``dL/darg = Im(g_sign conj(sign))``
+    (``d sign = i sign d arg``), and since ``log det`` is holomorphic with
+    derivative ``A^-T``, the gradient is ``c A^-H``.  For real ``a`` the sign
+    is piecewise constant and the gradient is ``g_logabs A^-T``.
+    """
+
+    @staticmethod
+    def forward(ctx, a):
+        lu, pivots, _ = torch.linalg.lu_factor_ex(a)
+        sign, logabs = _slogdet_from_lu(lu, pivots)
+        ctx.save_for_backward(lu, pivots, sign)
+        return sign, logabs
+
+    @staticmethod
+    def backward(ctx, g_sign, g_logabs):
+        lu, pivots, sign = ctx.saved_tensors
+        eye = torch.eye(lu.shape[-1], dtype=lu.dtype, device=lu.device).expand(lu.shape)
+        inv_h = torch.linalg.lu_solve(lu, pivots, eye, adjoint=True)  # A^-H
+        c = g_logabs
+        if lu.is_complex():
+            c = torch.complex(g_logabs, (g_sign * sign.conj()).imag)
+        return c[..., None, None] * inv_h
+
+
 def slogdet(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Sign (unit phase) and log-magnitude of ``det(a)``; leading axes are batch axes."""
-    lu, pivots, _ = torch.linalg.lu_factor_ex(a)
-    return _slogdet_from_lu(lu, pivots)
+    return _Slogdet.apply(a)
 
 
 def slogdet_solve(

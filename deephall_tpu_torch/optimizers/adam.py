@@ -1,0 +1,52 @@
+"""Adam (port of ``deephall_tpu/optimizers/adam.py``, which is ``optax.adam``).
+
+``b1 = 0.9``, ``b2 = 0.999``, ``eps = 1e-8``, ``eps_root = 0``; the moments are
+bias-corrected with ``count + 1`` and the learning rate is the schedule at the
+count before the increment, as optax's ``scale_by_adam`` and
+``scale_by_learning_rate`` compute them.  Parameters are updated in place, so
+their ``Tensor._version`` moves and the attention kernels' prepared weights are
+rebuilt (``ops/jet_attention.py:prepare_weights``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from deephall_tpu_torch.config import OptimizerAdam
+from deephall_tpu_torch.types import AdamState, CheckpointState
+from deephall_tpu_torch.weights import flatten, nest
+
+B1, B2, EPS = 0.9, 0.999, 1e-8
+
+
+def make_adam_training_step(optim_cfg: OptimizerAdam, loss_grad_fn, model):
+    """``(init, step)``; ``loss_grad_fn(data) -> (stats, grads)`` (``ENERGY_GRAD``)."""
+    params = dict(model.named_parameters())
+
+    def zeros() -> dict:
+        return {"params": nest({k: torch.zeros_like(p) for k, p in params.items()})}
+
+    def init(model, data) -> AdamState:
+        del model, data
+        device = next(iter(params.values())).device
+        return AdamState(torch.zeros((), dtype=torch.int32, device=device), zeros(), zeros())
+
+    def step(state: CheckpointState):
+        stats, grads = loss_grad_fn(state.data)
+        opt = state.opt_state
+        with torch.no_grad():
+            count = opt.count + 1
+            lr = optim_cfg.lr.schedule(opt.count)
+            mu_old, nu_old = flatten(opt.mu), flatten(opt.nu)
+            mu, nu = {}, {}
+            for name, p in params.items():
+                g = grads[name]
+                mu[name] = (1 - B1) * g + B1 * mu_old[name]
+                nu[name] = (1 - B2) * (g * g) + B2 * nu_old[name]
+                mu_hat = mu[name] / (1 - B1**count)
+                nu_hat = nu[name] / (1 - B2**count)
+                p.sub_(lr * (mu_hat / (torch.sqrt(nu_hat) + EPS)))
+        new_opt = AdamState(count, {"params": nest(mu)}, {"params": nest(nu)})
+        return state._replace(opt_state=new_opt), stats
+
+    return init, step

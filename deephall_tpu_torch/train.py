@@ -1,13 +1,17 @@
-"""VMC loop and CLI (port of ``deephall_tpu/train.py``, inference path).
+"""VMC loop and CLI (port of ``deephall_tpu/train.py``).
 
-Uniform walker init on the sphere or a restored checkpoint, burn-in, the
-initial-energy probe, then per iteration: MCMC sweep -> width adaptation ->
-optimizer step -> CSV row -> checkpoint on (time AND step multiple) OR NaN OR
-last step OR SIGTERM.  Iterations run one per Python loop turn.
+Uniform walker init on the sphere or a restored checkpoint, the optimizer
+state restored (and dropped if it belongs to another optimizer) or
+initialised, burn-in and the initial-energy probe on a run that starts at step
+0, then per iteration: MCMC sweep -> width adaptation -> optimizer step (KFAC,
+Adam or inference) -> CSV row -> checkpoint, with the optimizer state, on
+(time AND step multiple) OR NaN OR last step OR SIGTERM.  Iterations run one
+per Python loop turn.
 
-The sweep's feature tower runs in bfloat16 unless ``DEEPHALL_MCMC_DTYPE`` says
-``f32`` (the JAX package's variable and default); everything that feeds the
-local energy runs in full float32, with TF32 switched off at import.
+The sweep runs under ``no_grad`` with its feature tower in bfloat16 unless
+``DEEPHALL_MCMC_DTYPE`` says ``f32`` (the JAX package's variable and default);
+everything that feeds the local energy and the gradient runs in full float32,
+with TF32 switched off at import.  Only the training step builds a graph.
 
     python -m deephall_tpu_torch.train key=value ... [--yml file] [--device cpu]
 """
@@ -103,14 +107,18 @@ def train(cfg: Config, device: str | torch.device = "cuda") -> list[dict]:
     if restored is not None:
         initial_step, state, adapt_restored = restored
         load_flax(model, state.params)
+        opt_state = optimizers.validate_opt_state(cfg, state.opt_state)
         data = torch.as_tensor(state.data, dtype=torch.float32)
         mcmc_width = float(state.mcmc_width)
     else:
         initial_step = 0
         init_params(model, torch.Generator().manual_seed(cfg.seed))
+        opt_state = None
         data = init_guess(generator, cfg.batch_size, nelec, device)
         mcmc_width = float(cfg.mcmc.width)
-    model.to(device).requires_grad_(False)
+    model.to(device)
+    if cfg.optim.optimizer == OptimizerName.none:
+        model.requires_grad_(False)
     data = data.to(device)
 
     if (
@@ -123,7 +131,10 @@ def train(cfg: Config, device: str | torch.device = "cuda") -> list[dict]:
     dtype = sweep_dtype()
     mcmc_step = mcmc.make_mcmc_step(lambda x: model(x, dtype), steps=cfg.mcmc.steps)
     opt_init, training_step = optimizers.make_optimizer_step(cfg, model)
-    opt_state = opt_init(model, data)
+    if opt_state is None:
+        opt_state = opt_init(model, data)
+    else:
+        opt_state = optimizers.state_to(opt_state, device)
     logger.info("Start VMC on %s", torch.cuda.get_device_name(device) if device.type == "cuda" else device)
 
     with torch.no_grad():
@@ -153,12 +164,12 @@ def train(cfg: Config, device: str | torch.device = "cuda") -> list[dict]:
                 start = time.perf_counter()
                 with torch.no_grad():
                     data, pmove = mcmc_step(state.data, state.mcmc_width, generator)
-                    pmove = float(pmove)
-                    width = mcmc.update_mcmc_width(
-                        t, state.mcmc_width, cfg.mcmc.adapt_frequency, pmove, pmoves
-                    )
-                    t += 1
-                    state, stats = training_step(state._replace(data=data, mcmc_width=width))
+                pmove = float(pmove)
+                width = mcmc.update_mcmc_width(
+                    t, state.mcmc_width, cfg.mcmc.adapt_frequency, pmove, pmoves
+                )
+                t += 1
+                state, stats = training_step(state._replace(data=data, mcmc_width=width))
                 row = {k: _host(v) for k, v in stats.items()}
                 row.update(step=step, pmove=pmove, step_time=time.perf_counter() - start)
                 history.append(row)

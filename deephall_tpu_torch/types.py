@@ -1,7 +1,10 @@
 """Shared containers (port of ``deephall_tpu/types.py``).
 
 Statistics are plain dicts of tensors keyed as in the JAX package; the
-checkpoint state is a NamedTuple with the same four fields.
+checkpoint state is a NamedTuple with the same four fields.  The optimizer
+states carry the JAX package's field names (``KfacState``) and optax's
+(``AdamState``, optax's ``ScaleByAdamState``), so a JAX checkpoint's state maps
+onto them one to one.
 """
 
 from __future__ import annotations
@@ -46,3 +49,27 @@ class CheckpointState(NamedTuple):
     data: Any
     opt_state: Any
     mcmc_width: Any
+
+
+class KfacState(NamedTuple):
+    """KFAC's curvature, as ``deephall_tpu/optimizers/kfac.py:KfacState``.
+
+    ``kron``: ``{path: {"a": [fan_in (+1 with a bias)]^2, "g": [fan_out]^2}}``;
+    ``diag``: ``{path: {"scale": [f], "bias": [f]}}`` for the LayerNorms;
+    ``weight``: the EMA normaliser; ``step``: the int32 step counter.  ``path``
+    is the module path joined with ``/``.
+    """
+
+    kron: dict
+    diag: dict
+    weight: Any
+    step: Any
+
+
+class AdamState(NamedTuple):
+    """Adam's moments, as optax's ``ScaleByAdamState``: the int32 ``count`` and
+    ``mu`` / ``nu`` as flax-named trees ``{"params": {...}}``."""
+
+    count: Any
+    mu: dict
+    nu: dict

@@ -14,48 +14,55 @@ import torch
 from torch import nn
 
 
-def _flatten(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
+def params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
+    """Module state (``{dotted.name: float32 tensor}``) from a flax parameter tree."""
+    return {
+        k: torch.from_numpy(np.array(v, dtype=np.float32, copy=True))
+        for k, v in flatten(tree).items()
+    }
+
+
+def nest(named: dict) -> dict:
+    """``{dotted.name: leaf}`` as a nested dict keyed by the name's parts."""
+    tree: dict = {}
+    for name, leaf in named.items():
+        node = tree
+        *path, last = name.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[last] = leaf
+    return tree
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict:
     out = {}
     for key, value in tree.items():
-        name = f"{prefix}{key}"
         if isinstance(value, dict):
-            out.update(_flatten(value, name + "."))
+            out.update(_flatten(value, f"{prefix}{key}."))
         else:
-            out[name] = np.asarray(value)
+            out[f"{prefix}{key}"] = value
     return out
 
 
-def params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
-    """Module state (``{dotted.name: float32 tensor}``) from a flax parameter tree."""
-    if "params" in tree:
-        tree = tree["params"]
-    return {
-        k: torch.from_numpy(np.array(v, dtype=np.float32, copy=True))
-        for k, v in _flatten(tree).items()
-    }
+def flatten(tree: dict) -> dict:
+    """A flax tree (``{"params": {...}}`` or its inside) as ``{dotted.name: leaf}``."""
+    return _flatten(tree["params"] if "params" in tree else tree)
 
 
 def param_tree(module: nn.Module) -> dict:
     """Nested dict of the module's detached parameters, keyed by the flax names."""
-    tree: dict = {}
-    for name, param in module.named_parameters():
-        node = tree
-        *path, leaf = name.split(".")
-        for part in path:
-            node = node.setdefault(part, {})
-        node[leaf] = param.detach()
-    return tree
+    return nest({name: param.detach() for name, param in module.named_parameters()})
+
+
+def to_flax(named: dict) -> dict:
+    """``{dotted.name: tensor}`` (parameters, gradients, updates) as the flax tree
+    ``{"params": {...}}`` of NumPy arrays."""
+    return {"params": nest({k: v.detach().cpu().numpy().copy() for k, v in named.items()})}
 
 
 def params_to_flax(module: nn.Module) -> dict:
     """The flax parameter tree ``{"params": {...}}`` of NumPy float32 arrays."""
-
-    def to_numpy(node):
-        if isinstance(node, dict):
-            return {k: to_numpy(v) for k, v in node.items()}
-        return node.to("cpu", torch.float32).numpy().copy()
-
-    return {"params": to_numpy(param_tree(module))}
+    return to_flax({k: p.float() for k, p in module.named_parameters()})
 
 
 def load_flax(module: nn.Module, tree: dict) -> None:

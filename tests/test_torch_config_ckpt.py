@@ -26,7 +26,7 @@ from deephall_tpu.networks import make_network as jax_make_network
 from deephall_tpu_torch import config
 from deephall_tpu_torch.log import LogManager
 from deephall_tpu_torch.networks import make_network
-from deephall_tpu_torch.types import CheckpointState
+from deephall_tpu_torch.types import CheckpointState, KfacState
 from deephall_tpu_torch.weights import load_flax, params_from_flax, params_to_flax
 
 torch.set_num_threads(2)
@@ -77,7 +77,9 @@ def test_dotlist_merge_matches():
 
 def test_restore_write_back_read_by_jax(tmp_path):
     step, state, adapt = LogManager.restore_checkpoint(ARTIFACT / "ckpt_019999.npz")
-    assert step == 20000 and state.opt_state is None
+    # The JAX package's KfacState, read through the restricted unpickler.
+    assert step == 20000 and isinstance(state.opt_state, KfacState)
+    assert int(state.opt_state.step) == 20000
     cfg = config.Config.from_dict(yaml.safe_load((ARTIFACT / "config.yml").read_text()))
     model = make_network(cfg.system, cfg.network)
     load_flax(model, state.params)

@@ -144,8 +144,16 @@ def test_cuda_requested_without_a_card_raises(tmp_path):
 
 
 @pytest.mark.parametrize("optimizer", ["kfac", "adam"])
-def test_training_optimizers_are_not_ported_yet(optimizer):
+def test_training_optimizers_are_not_ported_yet(optimizer, tmp_path):
+    # Both training optimizers build; what of training is not ported yet, the
+    # excited states (system.orthogonal_states), raises and points to ROADMAP.
     cfg = config.Config.from_dict({"optim": {"optimizer": optimizer}})
     model = make_network(cfg.system, cfg.network)
+    init, step = make_optimizer_step(cfg, model)
+    assert callable(init) and callable(step)
+    cfg = config.Config.from_dict({
+        "optim": {"optimizer": optimizer}, "log": {"save_path": str(tmp_path)},
+        "system": {"orthogonal_states": [str(tmp_path / "ckpt_000000.npz")]},
+    })
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_optimizer_step(cfg, model)
+        train.train(cfg, device="cpu")
