@@ -28,16 +28,32 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
    3360, L^2 on, bf16 sweep; the mean energy must lie within 0.005 of 6.8681
    with L^2 < 0.2, every step must keep ``lr^2 coeff^2 d^T F d`` within the
    norm constraint, and the launch counts must be 10 x those of one local
-   energy (no burn-in, no probe).  On the trained walkers the kernel path's
-   median walker must lie within 1e-4 of the RMS of the plain path's and each
-   batch mean within 5% of its standard error of a float64 local energy's,
-   the stored weights must read as stale, and one KFAC step with the kernel
-   path's local energy must lie no farther from the step with the float64 one
-   than twice the plain float32 path's (the kernel-vs-plain distances are
-   printed).  Then 2 Adam iterations from the same checkpoint, which must drop
-   the KFAC state with ``validate_opt_state``'s warning and stay finite.  It
-   prints the iteration's median time, its split (sweep, local energy, forward
-   with its two backward passes, KFAC update) and the peak memory.
+   energy (no burn-in, no probe).  On the trained walkers, against a float64
+   local energy: in every observable the kernel path's median walker must lie
+   no farther from float64 than 1.5x the plain float32 path's, and the L^2
+   batch mean no farther than max(2x the plain path's distance, 3e-5 of its
+   RMS); the kernel path's median walker must also lie within 1e-4 of the RMS
+   of the plain path's, each batch mean within 5% of its standard error of
+   float64's, the stored weights must read as stale, and one KFAC step with
+   the kernel path's local energy must lie no farther from the step with the
+   float64 one than twice the plain float32 path's.  Then 2 Adam iterations
+   from the same checkpoint, which must drop the KFAC state with
+   ``validate_opt_state``'s warning and stay finite.  It prints the
+   iteration's median time, its split (sweep, local energy, forward with its
+   two backward passes, KFAC update) and the peak memory;
+7. excited: the training CLI resumes the magnetoroton sector-6 state
+   (``artifacts/roton13/sector_6``: Lz = 6, the L^2 selector at 42, one fixed
+   lower state, dynamic penalties) under KFAC with its stored curvature for 10
+   iterations in one block of 10, with a ``torch.profiler`` trace; E, Lz, L^2
+   and the overlap must match the sector's published row
+   (``artifacts/roton13/dispersion.csv``), the launches must be 10 x those of
+   one local energy and the trace must exist.  The same run in blocks of 1,
+   and again in one block of 10 without the profiler, gives the iteration
+   time at both block sizes; in both, inside the blocks and their statistics'
+   host reads (checkpoint saves apart), at most one synchronising call per
+   block may occur (``torch.cuda.set_sync_debug_mode``; the profiled run's
+   are listed).  Beside it, 5 inference iterations of the same state with its
+   fixed state (phase ``slice_excited``).
 
 The line before the last is the kernel table; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -54,6 +70,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -66,6 +83,18 @@ KERNEL_TOL = 2e-5  # max |kernel - plain| / max |plain| per output field
 END_TO_END_TOL = 1e-4
 ANCHOR_ENERGY, ANCHOR_TOL = 6.8681, 0.005
 ITERATIONS = 20
+# After training, the kernel path against a float64 local energy: its median
+# walker within this multiple of the plain float32 path's distance, and its L^2
+# batch mean within the larger of a multiple of the plain path's distance and a
+# share of the RMS.
+MEDIAN_VS_PLAIN, L2_MEAN_VS_PLAIN, L2_MEAN_FLOOR = 1.5, 2.0, 3e-5
+# The magnetoroton sector 6 (artifacts/roton13/dispersion.csv): E = 6.9719474
+# +- 0.00026, Lz = 6, L^2 = 42.28, overlap 3.0e-4, resumed at step 27500.
+SECTOR = REPO / "artifacts/roton13/sector_6"
+SECTOR_STEP, SECTOR_ITERATIONS, SECTOR_INFERENCE = 27500, 10, 5
+SECTOR_ENERGY, SECTOR_LZ, SECTOR_L2 = (6.97195, 0.005), (6.0, 0.05), (42.28, 2.0)
+SECTOR_OVERLAP = 0.01
+GROUND_STATE = REPO / "artifacts/prod_r4/ckpt_019999.npz"
 # Training resumes prod_r4's KfacState at step 20000.
 RESUME_STEP, TRAIN_ITERATIONS, ADAM_ITERATIONS = 20000, 10, 2
 # After training, each batch mean through the kernels within this share of its
@@ -372,18 +401,8 @@ def phase_slice(workdir: Path) -> dict:
     energies = np.array([row["energy"].real for row in history])
     l_square = np.array([row["angular_momentum_square"] for row in history])
     step_times = [row["step_time"] for row in history]
-    layers = 2
     calls = ITERATIONS + 1  # the iterations and the initial-energy probe
-    expected = {
-        "jet_layernorm": calls * 2 * layers,
-        "jet_attention": calls * layers,
-        "jet_gemm": calls * 2 * layers,
-        "jet_softmax_values": calls * layers,
-        # every launch of the production shape takes the kernel built for it
-        "jet_gemm_tensor_core": calls * 2 * layers,
-        "jet_softmax_values_tiled": calls * layers,
-        "jet_layernorm_streamed": calls * 2 * layers,
-    }
+    expected = {k: calls * v for k, v in launches_per_local_energy().items()}
     result = dict(
         iterations=len(history),
         mean_energy=float(energies.mean()),
@@ -574,8 +593,28 @@ def training_agreement(paths: dict) -> dict:
             kernels_vs_float64_mean_shift_sem=abs(mean["kernels"] - mean["float64"]) / max(sem, 1e-30),
             plain_vs_float64_mean_shift_sem=abs(mean["plain"] - mean["float64"]) / max(sem, 1e-30),
             stale_vs_plain_median_dev_rel=(vals["stale"] - vals["plain"]).abs().median().item() / rms,
+            **{f"{name}_vs_float64_median_dev_rel": (vals[name] - truth).abs().median().item() / rms
+               for name in ("kernels", "plain")},
+            **{f"{name}_vs_float64_mean_shift_rel": abs(mean[name] - mean["float64"]) / rms
+               for name in ("kernels", "plain")},
         )
     return report
+
+
+def float64_gate(fields: dict) -> list[str]:
+    """The observables in which the kernel path is farther from float64 than
+    the plain float32 path allows: the median walker beyond MEDIAN_VS_PLAIN
+    times the plain path's distance, or the L^2 batch mean beyond the larger
+    of L2_MEAN_VS_PLAIN times the plain path's distance and L2_MEAN_FLOOR of
+    the RMS."""
+    bad = [k for k, v in fields.items()
+           if not v["kernels_vs_float64_median_dev_rel"]
+           <= MEDIAN_VS_PLAIN * v["plain_vs_float64_median_dev_rel"]]
+    l2 = fields["angular_momentum_square"]
+    if not l2["kernels_vs_float64_mean_shift_rel"] <= max(
+            L2_MEAN_VS_PLAIN * l2["plain_vs_float64_mean_shift_rel"], L2_MEAN_FLOOR):
+        bad.append("angular_momentum_square batch mean")
+    return bad
 
 
 def kfac_step_updates(cfg, model, data, opt_state, paths: dict) -> dict:
@@ -625,16 +664,8 @@ def phase_train(workdir: Path, device) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     last = workdir / "kfac" / f"ckpt_{RESUME_STEP + TRAIN_ITERATIONS - 1:06d}.npz"
     cfg, model, final = restored_model(last, device)
-    layers = cfg.network.psiformer.num_layers
-    expected = {
-        "jet_layernorm": TRAIN_ITERATIONS * 2 * layers,
-        "jet_attention": TRAIN_ITERATIONS * layers,
-        "jet_gemm": TRAIN_ITERATIONS * 2 * layers,
-        "jet_softmax_values": TRAIN_ITERATIONS * layers,
-        "jet_gemm_tensor_core": TRAIN_ITERATIONS * 2 * layers,
-        "jet_softmax_values_tiled": TRAIN_ITERATIONS * layers,
-        "jet_layernorm_streamed": TRAIN_ITERATIONS * 2 * layers,
-    }
+    expected = {k: TRAIN_ITERATIONS * v
+                for k, v in launches_per_local_energy(cfg.network.psiformer.num_layers).items()}
     energies = np.array([row["energy"].real for row in history])
     l_square = np.array([row["angular_momentum_square"] for row in history])
     # lr^2 coeff^2 d^T F d: the step's quadratic norm, held to the constraint.
@@ -732,6 +763,9 @@ def phase_train(workdir: Path, device) -> dict:
                    and v["kernels_vs_float64_mean_shift_sem"] <= MEAN_SHIFT_SEM)]
     if bad:
         raise AssertionError(f"train: after the updates the kernel path is off in {bad}")
+    bad = float64_gate(fields)
+    if bad:
+        raise AssertionError(f"train: the kernel path is farther from float64 than float32 allows in {bad}")
     energy = fields["energy"]
     if not energy["stale_vs_plain_median_dev_rel"] >= 10 * energy["kernels_vs_plain_median_dev_rel"]:
         raise AssertionError("train: the comparison cannot tell the trained weights from the stored")
@@ -740,6 +774,187 @@ def phase_train(workdir: Path, device) -> dict:
     if (len(adam_history) != ADAM_ITERATIONS or not np.isfinite(adam_energies).all()
             or dropped not in adam_warnings or result["adam"]["count"] != ADAM_ITERATIONS):
         raise AssertionError(f"train: Adam {result['adam']}")
+    return counts
+
+
+def sector_cli(save: Path, *dotlist: str) -> list:
+    """The training CLI on the sector-6 state with its fixed state, by absolute paths."""
+    from deephall_tpu_torch import train
+
+    return train.cli([
+        "--yml", str(SECTOR / "config.yml"),
+        f"log.restore_path={SECTOR / f'ckpt_{SECTOR_STEP - 1:06d}.npz'}",
+        f"log.save_path={save}",
+        f"system.orthogonal_states=[{GROUND_STATE}]",
+        *dotlist,
+    ])
+
+
+def sector_means(history: list) -> dict:
+    def mean(key):
+        return float(np.mean([row[key].real if isinstance(row[key], complex) else row[key]
+                              for row in history]))
+
+    return dict(mean_energy=mean("energy"), mean_lz=mean("angular_momentum_z"),
+                mean_l_square=mean("angular_momentum_square"), mean_overlap=mean("overlap"),
+                mean_variance=mean("variance"))
+
+
+def sector_gate(phase: str, history: list, means: dict, iterations: int,
+                energy_tol: float = SECTOR_ENERGY[1]) -> None:
+    values = [v for row in history for v in (row["energy"].real, row["angular_momentum_z"],
+                                              row["angular_momentum_square"], row["overlap"])]
+    if len(history) != iterations or not np.isfinite(values).all():
+        raise AssertionError(f"{phase}: missing iterations or a NaN")
+    for key, (want, tol) in (("mean_energy", (SECTOR_ENERGY[0], energy_tol)), ("mean_lz", SECTOR_LZ),
+                             ("mean_l_square", SECTOR_L2)):
+        if not abs(means[key] - want) <= tol:
+            raise AssertionError(f"{phase}: {key} {means[key]} not within {tol} of {want}")
+    if not means["mean_overlap"] < SECTOR_OVERLAP:
+        raise AssertionError(f"{phase}: overlap {means['mean_overlap']} >= {SECTOR_OVERLAP}")
+
+
+def phase_slice_excited(workdir: Path) -> dict:
+    """Inference of the sector-6 state with its fixed state: the ENERGY_DIFF branch."""
+    reset_counts()
+    history = sector_cli(workdir / "sector_inference", "optim.optimizer=none",
+                         f"optim.iterations={SECTOR_INFERENCE}", "mcmc.burn_in=10")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    expected = {k: SECTOR_INFERENCE * v for k, v in launches_per_local_energy().items()}
+    means = sector_means(history)
+    emit(phase="slice_excited", iterations=len(history), **means,
+         overlaps=[row["overlap"] for row in history], launches=counts, expected_launches=expected)
+    # Five iterations after a short burn-in: the mean's spread is about twice
+    # that of the training phase's ten.
+    sector_gate("slice_excited", history, means, SECTOR_INFERENCE, energy_tol=2 * SECTOR_ENERGY[1])
+    if counts != expected:
+        raise AssertionError(f"slice_excited: launch counts {counts} != expected {expected}")
+    return counts
+
+
+def launches_per_local_energy(layers: int = 2) -> dict:
+    """Each kernel's launches in one local energy of the production Psiformer;
+    every launch of the production shapes takes the kernel built for them."""
+    return {
+        "jet_layernorm": 2 * layers, "jet_attention": layers, "jet_gemm": 2 * layers,
+        "jet_softmax_values": layers, "jet_gemm_tensor_core": 2 * layers,
+        "jet_softmax_values_tiled": layers, "jet_layernorm_streamed": 2 * layers,
+    }
+
+
+class SyncCount:
+    """Synchronising calls inside the iteration blocks and their statistics' host
+    reads, by source line (``torch.cuda.set_sync_debug_mode("warn")``; the
+    checkpoint saves and the set-up before the first block are not counted)."""
+
+    def __init__(self):
+        self.sources: list[str] = []
+        self.blocks = 0
+
+    def __enter__(self):
+        from deephall_tpu_torch import train
+
+        self.train = train
+        self.make_block, self.host_rows = train.make_iteration_block, train.host_rows
+
+        def make_block(*args):
+            block = self.make_block(*args)
+
+            def counted(*block_args):
+                self.blocks += 1
+                return self.watch(block, *block_args)
+
+            return counted
+
+        train.make_iteration_block = make_block
+        train.host_rows = lambda *args: self.watch(self.host_rows, *args)
+        return self
+
+    def watch(self, fn, *args):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return fn(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+                self.sources.extend(f"{'/'.join(Path(w.filename).parts[-2:])}:{w.lineno}"
+                                    for w in caught if "synchroniz" in str(w.message))
+
+    def __exit__(self, *exc):
+        self.train.make_iteration_block, self.train.host_rows = self.make_block, self.host_rows
+
+    def report(self) -> dict:
+        return dict(blocks=self.blocks, syncs=len(self.sources),
+                    syncs_per_block=len(self.sources) / max(self.blocks, 1),
+                    sync_sources=sorted(set(self.sources)))
+
+
+def phase_excited(workdir: Path) -> dict:
+    """Excited-state training: sector 6 resumed under KFAC through the CLI."""
+    from deephall_tpu_torch.log import LogManager
+    from deephall_tpu_torch.observables import runner
+
+    iterations = f"optim.iterations={SECTOR_STEP + SECTOR_ITERATIONS}"
+    trace_dir = workdir / "excited" / "trace"
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with SyncCount() as syncs:
+        history = sector_cli(workdir / "excited", "optim.optimizer=kfac", iterations,
+                             "optim.block_size=10", f"log.profile_dir={trace_dir}",
+                             "log.profile_start=2", "log.profile_steps=3")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expected = {k: SECTOR_ITERATIONS * v for k, v in launches_per_local_energy().items()}
+    _, final, _ = LogManager.restore_checkpoint(
+        workdir / "excited" / f"ckpt_{SECTOR_STEP + SECTOR_ITERATIONS - 1:06d}.npz")
+    cfg = runner.load_config(SECTOR / f"ckpt_{SECTOR_STEP - 1:06d}.npz")
+    step_norms = [row["learning_rate"] ** 2 * row["norm_coefficient"] ** 2 * row["quadratic_norm"]
+                  for row in history]
+
+    # The same code in blocks of 1, and again in one block without the profiler.
+    with SyncCount() as syncs_one:
+        per_iteration = sector_cli(workdir / "excited_block1", "optim.optimizer=kfac", iterations,
+                                   "optim.block_size=1")
+    with SyncCount() as syncs_unprofiled:
+        unprofiled = sector_cli(workdir / "excited_block10", "optim.optimizer=kfac", iterations,
+                                "optim.block_size=10")
+    times_one = [row["step_time"] * 1e3 for row in per_iteration]
+    means = sector_means(history)
+    result = dict(
+        iterations=len(history), **means,
+        overlaps=[row["overlap"] for row in history],
+        kfac_step_exit=int(final.opt_state.step),
+        step_norm_over_constraint=max(step_norms) / cfg.optim.kfac.norm_constraint,
+        launches=counts, expected_launches=expected,
+        block10=syncs_unprofiled.report(), block1=syncs_one.report(),
+        block10_profiled=syncs.report(),
+        step_time_block10_ms=unprofiled[0]["step_time"] * 1e3,
+        step_time_block10_profiled_ms=history[0]["step_time"] * 1e3,
+        step_time_block1_median_ms=statistics.median(times_one[1:]),
+        step_times_block1_ms=times_one,
+        trace=str(trace_dir / "trace.json"), trace_exists=(trace_dir / "trace.json").exists(),
+        trace_mb=(trace_dir / "trace.json").stat().st_size / 1e6 if (trace_dir / "trace.json").exists() else 0,
+        peak_memory_gb=peak_gb,
+    )
+    emit(phase="excited", **result)
+    sector_gate("excited", history, means, SECTOR_ITERATIONS)
+    if result["kfac_step_exit"] != SECTOR_STEP + SECTOR_ITERATIONS:
+        raise AssertionError("excited: the restored KfacState was not the one trained on")
+    if not result["step_norm_over_constraint"] <= 1 + 1e-5:
+        raise AssertionError("excited: a step broke the norm constraint")
+    if counts != expected:
+        raise AssertionError(f"excited: launch counts {counts} != expected {expected}")
+    if not result["trace_exists"]:
+        raise AssertionError("excited: no profiler trace")
+    # The profiler's own waits are listed (block10_profiled), not gated.
+    for key, blocks in (("block10", 1), ("block1", SECTOR_ITERATIONS)):
+        if not (result[key]["blocks"] == blocks and result[key]["syncs_per_block"] <= 1):
+            raise AssertionError(f"excited: synchronising calls in the blocks: {key} {result[key]}")
+    if len(per_iteration) != SECTOR_ITERATIONS or len(unprofiled) != SECTOR_ITERATIONS:
+        raise AssertionError("excited: the block-1 or the unprofiled run is short")
     return counts
 
 
@@ -780,8 +995,10 @@ def main() -> int:
     kernels = phase_kernels(device, rates)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
         counts = phase_slice(Path(workdir))
+        phase_slice_excited(Path(workdir))
         phase_end_to_end(device)
         train_counts = phase_train(Path(workdir), device)
+        excited_counts = phase_excited(Path(workdir))
 
     sources = {
         "jet_layernorm": ("deephall_tpu_torch/csrc/jet_layernorm.cu", "deephall_tpu/ops/jet_layernorm.py:58"),
@@ -794,6 +1011,7 @@ def main() -> int:
         mode = f"C{MODES[0][0]}E{MODES[0][1]}"
         row = dict(name=kernel, route="cuda", source=source, replaces=replaces,
                    launches=counts[kernel], launches_train=train_counts[kernel],
+                   launches_excited=excited_counts[kernel],
                    **table_numbers(kernels[(kernel, mode)]))
         if kernel == "jet_layernorm":
             row["launches_streamed"] = counts["jet_layernorm_streamed"]

@@ -31,13 +31,18 @@
 // tiles).  A ring of three 64 KB stages (A 256 x 32 floats, W hi and W lo
 // 128 x 32 each, 128-byte rows XOR-swizzled by 16-byte chunk) is filled with
 // 16-byte cp.async two steps ahead, across tile boundaries.  Each warpgroup
-// owns 128 rows as two 64-row halves with an accumulator each: a step starts
-// twelve wgmma.m64n128k8 per half (A from registers, W from shared memory),
-// and each half's operand is loaded from shared memory and split while the
-// other half's products run.  The bias goes on in the epilogue, which pairs
-// lanes to store 16 bytes a thread.  It takes K % 32 == 0, N % 128 == 0 and
-// 16-byte aligned rows; anything else goes to jet_gemm_kernel, a tiled SIMT
-// GEMM in plain float32 on the CUDA cores.
+// owns 128 rows as two 64-row halves.  Accuracy: the tensor cores align the
+// addends of one wgmma to the largest and truncate, a biased loss per
+// accumulate step.  One accumulator for all 96 products of K = 256 (the
+// kernel's first design) lost more than a float32 FMA chain wherever a row
+// cancels.  So a step's twelve wgmma.m64n128k8 per half (A from registers, W
+// from shared memory) go into an accumulator that starts from zero, the eight
+// small terms before the four large ones, and that partial sum is added into
+// the half's float32 accumulator on the CUDA cores, rounding to nearest.  The two
+// warpgroups' wgmma streams fill each other's waits.  The bias goes on in the
+// epilogue, which pairs lanes to store 16 bytes a thread.  It takes
+// K % 32 == 0, N % 128 == 0 and 16-byte aligned rows; anything else goes to
+// jet_gemm_kernel, a tiled SIMT GEMM in plain float32 on the CUDA cores.
 //
 // jet_softmax_values at the production shapes (jet_softmax_values_tiled_kernel,
 // a template on T, dh, C, E).  What bounds it: bytes (q, k, v read once, the
@@ -128,9 +133,17 @@ __device__ __forceinline__ void wgmma_m64n128k8(float (&d)[64], uint32_t a0, uin
 
 // C[m, n] = sum_k A[m, k] W[k, n] + (m < bias_rows ? bias[n] : 0) with
 // whi + wlo = W^T as [N, K], both rounded to TF32.  K % BK == 0, N % BN == 0.
-// Each of the two warpgroups owns 128 rows of the tile as two 64-row halves
-// with an accumulator each; the halves alternate, so that one half's operand
-// is loaded and split under the other half's products.
+// Each of the two warpgroups owns 128 rows of the tile as two 64-row halves.
+// A half's twelve products of one step go into the wgmma accumulator `part`,
+// which starts from zero: first the eight small terms (lo*hi, hi*lo of the
+// four k8 blocks), then the four large ones (hi*hi).  `part` is then added
+// into the half's float32 accumulator by the CUDA cores, rounding to nearest.
+// The tensor cores align an instruction's addends to the largest and do not
+// round to nearest, a loss that is biased and grows with the accumulate
+// steps; here it spans twelve instructions, not 96, and the small terms meet
+// the large ones once per step, as one partial sum, instead of at every k8
+// block.  255 registers, no spill (ptxas -v on sm_90a); a promotion every two
+// k8 blocks gained no accuracy and cost time.
 __global__ void __launch_bounds__(THREADS, 1) jet_gemm_tf32x3_kernel(
     const float* __restrict__ A, const float* __restrict__ whi, const float* __restrict__ wlo,
     const float* __restrict__ bias, float* __restrict__ C, int64_t M, int N, int K,
@@ -191,24 +204,28 @@ __global__ void __launch_bounds__(THREADS, 1) jet_gemm_tf32x3_kernel(
     }
   };
 
-  // The twelve products of one step and half: lo*hi, hi*lo, hi*hi per k8 block.
-  auto products = [&](int f, float (&d)[64], const uint32_t (&hi)[16], const uint32_t (&lo)[16],
-                      int accumulate) {
+  // The twelve products of one step and half into d, from zero: the small terms
+  // of every k8 block first, then the large ones; waited for.
+  auto products = [&](int f, float (&d)[64], const uint32_t (&hi)[16], const uint32_t (&lo)[16]) {
     const uint32_t slot = smem_base + (f % STAGES) * STAGE_BYTES;
     const uint64_t dhi = matrix_descriptor(slot + A_BYTES);
     const uint64_t dlo = matrix_descriptor(slot + A_BYTES + W_BYTES);
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    // 32 bytes further along K inside the swizzled row: +2 in the address field.
 #pragma unroll
     for (int kk = 0; kk < BK / 8; ++kk) {
-      // 32 bytes further along K inside the swizzled row: +2 in the address field.
       wgmma_m64n128k8(d, lo[4 * kk], lo[4 * kk + 1], lo[4 * kk + 2], lo[4 * kk + 3],
-                      dhi + 2 * kk, kk == 0 ? accumulate : 1);
+                      dhi + 2 * kk, kk != 0);
       wgmma_m64n128k8(d, hi[4 * kk], hi[4 * kk + 1], hi[4 * kk + 2], hi[4 * kk + 3],
                       dlo + 2 * kk, 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
       wgmma_m64n128k8(d, hi[4 * kk], hi[4 * kk + 1], hi[4 * kk + 2], hi[4 * kk + 3],
                       dhi + 2 * kk, 1);
     }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
   };
 
   auto store_half = [&](int tile, int r, const float (&d)[64]) {
@@ -236,59 +253,72 @@ __global__ void __launch_bounds__(THREADS, 1) jet_gemm_tf32x3_kernel(
     }
   };
 
-  // The operand registers of a wgmma stay live until it has been waited for.
-  auto keep = [](uint32_t (&hi)[16], uint32_t (&lo)[16]) {
-#pragma unroll
-    for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(hi[i]), "+r"(lo[i])::"memory");
-  };
+  float acc[2][64] = {}, part[64] = {};
+  uint32_t hi[16], lo[16];
 
-  float acc0[64] = {}, acc1[64] = {};
-  uint32_t hi0[16], lo0[16], hi1[16], lo1[16];
-
-#pragma unroll
-  for (int f = 0; f < STAGES - 1; ++f) load_stage(f);
-  cp_async_wait<STAGES - 2>();
+  load_stage(0);
+  load_stage(1);
+  cp_async_wait<1>();
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
-  load_a(0, 0, hi0, lo0);
 
   int step_in_tile = 0, tiles_done = 0;
   for (int f = 0; f < steps; ++f) {
-    const bool first = step_in_tile == 0, last = step_in_tile == steps_per_tile - 1;
-
-    // Half 0 starts; half 1's operand is loaded and split under it, then half 1
-    // starts.  The waits are the same on every path, so that the compiler can
-    // see which registers are in flight.
-    products(f, acc0, hi0, lo0, !first);
-    load_a(f, 1, hi1, lo1);
-    products(f, acc1, hi1, lo1, !first);
-    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-    keep(hi0, lo0);
-
-    // Under half 1: step f + 1 has landed; past the barrier every thread has
-    // waited for the products of step f - 1, whose ring slot the next copies
-    // take; half 0's next operand is loaded and split.
-    cp_async_wait<STAGES - 3>();
+    // Step f + 2 goes into the slot of step f - 1, which every thread has
+    // finished with before the barrier at the end of that step.
+    load_stage(f + 2);
+    const bool first = step_in_tile == 0;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      load_a(f, r, hi, lo);
+      products(f, part, hi, lo);
+      // The operand registers and the accumulator are the wgmma's until the
+      // wait; the compiler sees the results only from here on.
+#pragma unroll
+      for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(hi[i]), "+r"(lo[i])::"memory");
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        asm volatile("" : "+f"(part[i])::"memory");
+        acc[r][i] = (first ? 0.f : acc[r][i]) + part[i];
+      }
+    }
+    // Step f + 1 has landed (f + 2 may still be in flight).
+    cp_async_wait<1>();
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
-    load_stage(f + STAGES - 1);
-    if (f + 1 < steps) load_a(f + 1, 0, hi0, lo0);
 
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-    keep(hi1, lo1);
-#pragma unroll
-    for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(acc0[i]), "+f"(acc1[i])::"memory");
-
-    if (last) {
+    if (step_in_tile == steps_per_tile - 1) {
       step_in_tile = 0;
-      store_half(blockIdx.x + tiles_done * gridDim.x, 0, acc0);
-      store_half(blockIdx.x + tiles_done * gridDim.x, 1, acc1);
+      store_half(blockIdx.x + tiles_done * gridDim.x, 0, acc[0]);
+      store_half(blockIdx.x + tiles_done * gridDim.x, 1, acc[1]);
       ++tiles_done;
     } else {
       ++step_in_tile;
     }
   }
   cp_async_wait<0>();
+}
+
+int launch(const float* a, const float* whi, const float* wlo, const float* bias, float* c,
+           int64_t m, int n, int k, int64_t bias_rows, cudaStream_t stream) {
+  const int64_t m_tiles = (m + BM - 1) / BM;
+  const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
+  if (m <= 0 || n <= 0 || k <= 0 || k % BK || n % BN || m_tiles * (n / BN) > 0x7fffffff ||
+      misaligned(a) || misaligned(whi) || misaligned(wlo) || misaligned(bias) ||
+      misaligned(c)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaFuncSetAttribute(jet_gemm_tf32x3_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int device = 0, sms = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const int n_tiles = n / BN;
+  const int total = static_cast<int>(m_tiles * n_tiles);
+  jet_gemm_tf32x3_kernel<<<total < sms ? total : sms, THREADS, SMEM_BYTES, stream>>>(
+      a, whi, wlo, bias, c, m, n, k, bias_rows, n_tiles, total);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace tc
@@ -860,26 +890,7 @@ extern "C" int jet_gemm_f32(const float* a, const float* b, const float* bias, f
 extern "C" int jet_gemm_tf32x3(const float* a, const float* whi, const float* wlo,
                                const float* bias, float* c, int64_t m, int n, int k,
                                int64_t bias_rows, void* stream) {
-  const int64_t m_tiles = (m + tc::BM - 1) / tc::BM;
-  const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
-  if (m <= 0 || n <= 0 || k <= 0 || k % tc::BK || n % tc::BN ||
-      m_tiles * (n / tc::BN) > 0x7fffffff || misaligned(a) || misaligned(whi) ||
-      misaligned(wlo) || misaligned(bias) || misaligned(c)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaError_t err = cudaFuncSetAttribute(tc::jet_gemm_tf32x3_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         tc::SMEM_BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int device = 0, sms = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const int n_tiles = n / tc::BN;
-  const int total = static_cast<int>(m_tiles * n_tiles);
-  tc::jet_gemm_tf32x3_kernel<<<total < sms ? total : sms, tc::THREADS, tc::SMEM_BYTES,
-                               static_cast<cudaStream_t>(stream)>>>(
-      a, whi, wlo, bias, c, m, n, k, bias_rows, n_tiles, total);
-  return static_cast<int>(cudaGetLastError());
+  return tc::launch(a, whi, wlo, bias, c, m, n, k, bias_rows, static_cast<cudaStream_t>(stream));
 }
 
 // Logits, softmax and value-contraction jets of every (walker, head).

@@ -13,8 +13,13 @@ second backward under ``(w.imag, -w.real)``, and
 :func:`~deephall_tpu_torch.networks.blocks.kfac_capture` and takes the
 exact-Fisher output sensitivities from a second backward under the cotangent
 ``(sqrt 2, 0)`` on ``(Re, Im)``.  Gradients are ``{dotted.name: tensor}`` in
-the model's parameter order.  The excited-state overlap terms
-(``fixed_state_log_ratios``) are not ported.
+the model's parameter order.
+
+Excited states: every loss takes ``fixed_states``, callables ``data -> log
+phi_j`` of converged lower states, whose overlap penalties fold into the
+per-walker differences (:func:`orthogonality_stats_and_diff`).  ``ENERGY_DIFF``
+takes the current ``log psi`` from one extra forward without gradients; the
+gradient modes take it from the forward that autograd already holds.
 """
 
 from __future__ import annotations
@@ -29,12 +34,16 @@ from deephall_tpu_torch.networks.blocks import FISHER_COTANGENT, kfac_capture
 from deephall_tpu_torch.types import LossStats
 
 
-def nanmean(x: torch.Tensor) -> torch.Tensor:
-    """Mean over the entries that are not NaN (either part, for complex input)."""
+def nanmean(x: torch.Tensor, dim: int | None = None) -> torch.Tensor:
+    """Mean over the entries that are not NaN (either part, for complex input);
+    over ``dim`` with the dimension kept, if given."""
     if not x.is_complex():
-        return torch.nanmean(x)
+        return torch.nanmean(x) if dim is None else torch.nanmean(x, dim=dim, keepdim=True)
     valid = ~torch.isnan(x)
-    return torch.where(valid, x, torch.zeros_like(x)).sum() / valid.sum()
+    total = torch.where(valid, x, torch.zeros_like(x))
+    if dim is None:
+        return total.sum() / valid.sum()
+    return total.sum(dim=dim, keepdim=True) / valid.sum(dim=dim, keepdim=True)
 
 
 def iqr_clip_real(x: torch.Tensor, scale: float = 100.0) -> torch.Tensor:
@@ -48,6 +57,48 @@ def iqr_clip(x: torch.Tensor, scale: float = 100.0) -> torch.Tensor:
     return torch.complex(iqr_clip_real(x.real, scale), iqr_clip_real(x.imag, scale))
 
 
+def orthogonality_stats_and_diff(
+    log_ratios: torch.Tensor, penalty
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Overlap penalties against fixed lower states, from one walker ensemble.
+
+    ``O_j = |E[rho_j]|^2 / E[|rho_j|^2]`` with ``rho_j,i = phi_j(x_i) / psi(x_i)``
+    over the ``|psi|^2`` walkers; its gradient folds into the differences as
+    ``penalty * (conj(r) rho_i / n - O_j)`` with ``r = E[rho]``, ``n =
+    E[|rho|^2]`` (``deephall_tpu/loss.py:orthogonality_stats_and_diff`` derives
+    it).  The real parts are shifted by their largest value (NaN or infinite
+    shifts become 0), which leaves ``O`` unchanged and keeps ``exp`` finite.
+
+    Args:
+        log_ratios: ``[n_states, batch]`` complex ``log(phi_j / psi)``.
+        penalty: the strength, a float or a 0-d tensor.
+
+    Returns:
+        ``(overlap, diff)``: the real ``sum_j O_j`` and the complex per-walker
+        weights ``[batch]``.
+    """
+    log_ratios = log_ratios.detach()
+    real = log_ratios.real
+    shift = torch.where(torch.isnan(real), -torch.inf, real).amax(dim=1, keepdim=True)
+    shift = torch.where(torch.isfinite(shift), shift, torch.zeros_like(shift))
+    rho = torch.exp(log_ratios - shift)
+    r = nanmean(rho, dim=1)
+    n = torch.nanmean(rho.abs() ** 2, dim=1, keepdim=True)
+    overlap = r.abs() ** 2 / n  # [n_states, 1]
+    diff = penalty * (torch.conj(r) * rho / n - overlap)
+    return overlap.sum(), diff.sum(dim=0)
+
+
+def fixed_state_log_ratios(fixed_states, logpsi: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """``[n_states, batch]`` complex ``log(phi_j(x_i) / psi(x_i))``, without gradients."""
+    with torch.no_grad():
+        return torch.stack([f(data) for f in fixed_states]) - logpsi.detach()[None]
+
+
+# The dynamic-penalty operands (``system.dynamic_penalties``), by config field.
+PENALTY_KEYS = ("lz_penalty", "lz_center", "l2_penalty", "l2_center", "overlap_penalty")
+
+
 class LossMode(enum.Enum):
     ENERGY_GRAD = enum.auto()
     ENERGY_DIFF = enum.auto()
@@ -55,40 +106,53 @@ class LossMode(enum.Enum):
 
 
 def stats_and_clipped_diff(
-    system: System, el: torch.Tensor, other_observables: dict
+    system: System,
+    el: torch.Tensor,
+    other_observables: dict,
+    log_ratios: torch.Tensor | None = None,
+    penalties: dict | None = None,
 ) -> tuple[LossStats, torch.Tensor]:
     """Per-step statistics and the clipped per-walker energy differences.
 
     The Lz / L^2 penalty branches follow ``deephall_tpu/loss.py:
     stats_and_clipped_diff``, including ``l2_center`` and ``l2_adaptive``.
-    With ``dynamic_penalties`` the JAX package assembles the penalty terms
-    unconditionally (a zero strength multiplies them away); the same branch
-    conditions are kept here, with the values read from the config.
+    ``log_ratios`` (against fixed lower states) adds the overlap penalty and
+    the ``overlap`` statistic.  ``penalties`` (``system.dynamic_penalties``)
+    is a dict of 0-d tensors ``{lz_penalty, lz_center, l2_penalty, l2_center,
+    overlap_penalty}`` that replaces the config's values; the penalty terms are
+    then assembled unconditionally (a zero strength multiplies them away).
     """
     mean_observables = {k: nanmean(v) for k, v in other_observables.items()}
     loss = nanmean(el)
     clipped_loss = nanmean(iqr_clip(el))
     diff_to_clip = el - clipped_loss
-    dynamic = system.dynamic_penalties
+    dynamic = bool(penalties)
+    values = penalties if dynamic else {k: getattr(system, k) for k in PENALTY_KEYS}
+    if log_ratios is not None:
+        overlap, ortho_diff = orthogonality_stats_and_diff(log_ratios, values["overlap_penalty"])
+        mean_observables["overlap"] = overlap
+        diff_to_clip = diff_to_clip + ortho_diff
     k_eff = None
     if (dynamic and system.compute_l2) or system.l2_penalty:
         l2 = other_observables["angular_momentum_square"]
         clipped_l2 = nanmean(iqr_clip_real(l2))
         if system.l2_adaptive:
-            k_eff = system.l2_penalty * torch.clamp(clipped_l2 - system.l2_center, 0.0, 1.0)
+            k_eff = values["l2_penalty"] * torch.clamp(clipped_l2 - values["l2_center"], 0.0, 1.0)
         else:
-            k_eff = system.l2_penalty * (clipped_l2 > system.l2_center).to(l2.dtype)
+            k_eff = values["l2_penalty"] * (clipped_l2 > values["l2_center"]).to(l2.dtype)
         diff_to_clip = diff_to_clip + k_eff * (l2 - clipped_l2)
     if dynamic or system.lz_penalty:
-        lz_penalty = torch.tensor(system.lz_penalty, dtype=el.real.dtype, device=el.device)
+        lz_penalty = values["lz_penalty"] if dynamic else torch.full(
+            (), system.lz_penalty, dtype=el.real.dtype, device=el.device)
+        lz_center = values["lz_center"]
         if system.l2_adaptive and k_eff is not None:
-            lz_penalty = torch.maximum(lz_penalty, 3.0 * system.lz_center * k_eff)
+            lz_penalty = torch.maximum(lz_penalty, 3.0 * lz_center * k_eff)
         lz_square = other_observables["angular_momentum_z_square"]
         lz = other_observables["angular_momentum_z"]
         clipped_lz_square = nanmean(iqr_clip_real(lz_square))
         clipped_lz = nanmean(iqr_clip_real(lz))
         diff_to_clip = diff_to_clip + lz_penalty * (
-            (lz_square - clipped_lz_square) - 2 * system.lz_center * (lz - clipped_lz)
+            (lz_square - clipped_lz_square) - 2 * lz_center * (lz - clipped_lz)
         )
     diff = iqr_clip(diff_to_clip)
     variance = nanmean(el.real**2) - loss.real**2
@@ -114,7 +178,8 @@ def _nan_to_num(names, grads) -> dict[str, torch.Tensor]:
     return {name: torch.nan_to_num(g) for name, g in zip(names, grads)}
 
 
-def gradient_and_capture(model, system: System, data: torch.Tensor, el, other_observables):
+def gradient_and_capture(model, system: System, data: torch.Tensor, el, other_observables,
+                         fixed_states=None, penalties: dict | None = None):
     """The float32 forward of ``log psi`` in the capture context and its two backward passes.
 
     Returns ``(stats, grads, inputs, dy)``: the energy gradient, and every
@@ -123,7 +188,8 @@ def gradient_and_capture(model, system: System, data: torch.Tensor, el, other_ob
     params = dict(model.named_parameters())
     with torch.enable_grad(), kfac_capture(model) as capture:
         logpsi = model(data)
-    stats, diff = stats_and_clipped_diff(system, el, other_observables)
+    log_ratios = fixed_state_log_ratios(fixed_states, logpsi, data) if fixed_states else None
+    stats, diff = stats_and_clipped_diff(system, el, other_observables, log_ratios, penalties)
     w = vjp_weights(diff)
     grads = _pullback(logpsi, w.real, w.imag, list(params.values()), retain_graph=True)
     paths = list(capture.outputs)
@@ -133,8 +199,8 @@ def gradient_and_capture(model, system: System, data: torch.Tensor, el, other_ob
     return stats, _nan_to_num(params, grads), capture.inputs, dict(zip(paths, dy))
 
 
-def make_loss_fn(model, system: System, mode: LossMode = LossMode.ENERGY_DIFF):
-    """``loss_fn(data) -> (stats, diff_or_grads)`` for the given mode.
+def make_loss_fn(model, system: System, mode: LossMode = LossMode.ENERGY_DIFF, fixed_states=None):
+    """``loss_fn(data, penalties=None) -> (stats, diff_or_grads)`` for the given mode.
 
     ``ENERGY_DIFF`` returns the clipped per-walker differences, ``ENERGY_GRAD``
     the real gradients and ``SR_F_VECTOR`` the complex tangents, as
@@ -142,15 +208,18 @@ def make_loss_fn(model, system: System, mode: LossMode = LossMode.ENERGY_DIFF):
     """
     local_energy = forward_laplacian_local_energy(model, system)
 
-    def loss_fn(data: torch.Tensor):
+    def loss_fn(data: torch.Tensor, penalties: dict | None = None):
         with torch.no_grad():
             el, other_observables = local_energy(data)
             if mode == LossMode.ENERGY_DIFF:
-                return stats_and_clipped_diff(system, el, other_observables)
+                log_ratios = (fixed_state_log_ratios(fixed_states, model(data), data)
+                              if fixed_states else None)
+                return stats_and_clipped_diff(system, el, other_observables, log_ratios, penalties)
         params = dict(model.named_parameters())
         with torch.enable_grad():
             logpsi = model(data)
-        stats, diff = stats_and_clipped_diff(system, el, other_observables)
+        log_ratios = fixed_state_log_ratios(fixed_states, logpsi, data) if fixed_states else None
+        stats, diff = stats_and_clipped_diff(system, el, other_observables, log_ratios, penalties)
         w = vjp_weights(diff)
         sr = mode == LossMode.SR_F_VECTOR
         # Re[conj(grad logpsi) w] = grad(Re psi) . Re w + grad(Im psi) . Im w
@@ -167,14 +236,16 @@ def make_loss_fn(model, system: System, mode: LossMode = LossMode.ENERGY_DIFF):
     return loss_fn
 
 
-def make_loss_and_capture_fn(model, system: System):
-    """``fn(data) -> (stats, grads, inputs, dy)``: the energy gradient and the KFAC
-    capture from one shared forward (``deephall_tpu/loss.py:make_loss_and_capture_fn``)."""
+def make_loss_and_capture_fn(model, system: System, fixed_states=None):
+    """``fn(data, penalties=None) -> (stats, grads, inputs, dy)``: the energy gradient
+    and the KFAC capture from one shared forward
+    (``deephall_tpu/loss.py:make_loss_and_capture_fn``)."""
     local_energy = forward_laplacian_local_energy(model, system)
 
-    def fn(data: torch.Tensor):
+    def fn(data: torch.Tensor, penalties: dict | None = None):
         with torch.no_grad():
             el, other_observables = local_energy(data)
-        return gradient_and_capture(model, system, data, el, other_observables)
+        return gradient_and_capture(model, system, data, el, other_observables,
+                                    fixed_states, penalties)
 
     return fn

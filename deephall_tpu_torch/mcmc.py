@@ -11,7 +11,6 @@ from __future__ import annotations
 import math
 from collections.abc import Callable
 
-import numpy as np
 import torch
 
 
@@ -93,22 +92,23 @@ def make_mcmc_step(batch_network: Callable[[torch.Tensor], torch.Tensor], steps:
     return mcmc_step
 
 
-def update_mcmc_width(
-    t: int, width: float, adapt_frequency: int, pmove: float, pmoves: np.ndarray
-) -> float:
-    """Adaptive proposal width: ring buffer of acceptances, updated in place.
+def adapt_width(
+    t: torch.Tensor, width: torch.Tensor, pmoves: torch.Tensor, pmove: torch.Tensor,
+    adapt_frequency: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Adaptive proposal width on the device: ``(width, pmoves)`` after iteration ``t``.
 
-    Every ``adapt_frequency`` steps the width grows by 1.1 when the ring's mean
-    acceptance is above 0.55 and shrinks by 1.1 when it is below 0.5
-    (``deephall_tpu/train.py:make_iteration_block``).
+    ``pmove`` goes into slot ``t % adapt_frequency`` of the acceptance ring
+    ``pmoves``; every ``adapt_frequency`` iterations (``t > 0``) the float32
+    width grows by 1.1 when the ring's mean is above 0.55 and shrinks by 1.1
+    when it is below 0.5, as the body of ``deephall_tpu/train.py:
+    make_iteration_block`` does.  Only tensor operations: nothing is read back.
     """
     idx = t % adapt_frequency
-    pmoves[idx] = pmove
-    if t > 0 and idx == 0:
-        mean = np.mean(pmoves, dtype=np.float32)
-        # float32 arithmetic, as the width is a float32 scalar in both packages.
-        if mean > 0.55:
-            width = float(np.float32(width) * np.float32(1.1))
-        elif mean < 0.5:
-            width = float(np.float32(width) / np.float32(1.1))
-    return width
+    slots = torch.arange(adapt_frequency, device=pmoves.device)
+    pmoves = torch.where(slots == idx, pmove.to(pmoves.dtype), pmoves)
+    do_update = (t > 0) & (idx == 0)
+    mean = pmoves.mean()
+    width = torch.where(do_update & (mean > 0.55), width * 1.1, width)
+    width = torch.where(do_update & (mean < 0.5), width / 1.1, width)
+    return width, pmoves

@@ -30,6 +30,7 @@ from torch import nn
 
 from deephall_tpu_torch.config import OrbitalType
 from deephall_tpu_torch.geometry import chord_distances
+from deephall_tpu_torch.utils import constant
 
 
 # Cotangent that turns output sensitivities into exact-Fisher factors: the
@@ -227,11 +228,11 @@ def envelope(theta: torch.Tensor, phi: torch.Tensor, flux: int) -> torch.Tensor:
     polar form so that the exponent 0 gives exactly 1.
     """
     alpha, beta, norm = envelope_exponents(flux)
-    a = torch.tensor(alpha, dtype=theta.dtype, device=theta.device)
-    b = torch.tensor(beta, dtype=theta.dtype, device=theta.device)
+    a = constant(tuple(alpha), theta.dtype, theta.device)
+    b = constant(tuple(beta), theta.dtype, theta.device)
     c = torch.cos(theta / 2)[..., None]
     s = torch.sin(theta / 2)[..., None]
-    mag = norm.to(theta.device) * torch.pow(c, a) * torch.pow(s, b)
+    mag = constant(tuple(norm.tolist()), norm.dtype, theta.device) * torch.pow(c, a) * torch.pow(s, b)
     return torch.polar(mag, 0.5 * (a - b) * phi[..., None])
 
 
@@ -300,7 +301,9 @@ class Jastrow(nn.Module):
         for pairs, name, c in ((par, "ee_par", 0.25), (anti, "ee_anti", 0.5)):
             if pairs:
                 alpha = getattr(self, name)
-                i, j = zip(*pairs)
-                r = r_ee[..., list(i), list(j)]
+                # Index tensors made once on the device: a list would be
+                # copied from the host at every call.
+                i, j = (constant(v, torch.long, r_ee.device) for v in zip(*pairs))
+                r = r_ee[..., i, j]
                 total = total + torch.sum(-(c * alpha**2) / (alpha + r), dim=-1)
         return total

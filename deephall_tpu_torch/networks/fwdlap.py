@@ -21,6 +21,7 @@ from deephall_tpu_torch.networks.blocks import envelope, envelope_exponents, jas
 from deephall_tpu_torch.networks.psiformer import Psiformer, spin_values
 from deephall_tpu_torch.ops import fwdlap, jet_attention, jet_layernorm
 from deephall_tpu_torch.ops.fwdlap import Jet
+from deephall_tpu_torch.utils import constant
 from deephall_tpu_torch.weights import param_tree
 
 
@@ -49,9 +50,9 @@ def input_feature_fn(nspins):
 
     def fn(data, seeds):
         x, first, second = _sphere_point(data, seeds)
-        spins = torch.tensor(spin_values(nspins), dtype=data.dtype, device=data.device)
+        spins = constant(tuple(spin_values(nspins)), data.dtype, data.device)
         spins = torch.broadcast_to(spins, data.shape[:-1])[..., None]
-        order = [2, 0, 1]  # (z, x, y)
+        order = constant((2, 0, 1), torch.long, data.device)  # (z, x, y)
         return (
             torch.cat([x[..., order], spins], dim=-1),
             torch.cat([first[..., order], torch.zeros_like(first[..., :1])], dim=-1),
@@ -75,8 +76,8 @@ def envelope_fn(flux: int):
     def fn(data, seeds):
         env = envelope(data[..., 0], data[..., 1], flux)
         theta = data[..., 0, None]
-        a = torch.tensor(alpha, dtype=data.dtype, device=data.device)
-        b = torch.tensor(beta, dtype=data.dtype, device=data.device)
+        a = constant(tuple(alpha), data.dtype, data.device)
+        b = constant(tuple(beta), data.dtype, data.device)
         c, s = torch.cos(theta / 2), torch.sin(theta / 2)
         l1 = 0.5 * b * c / s - 0.5 * a * s / c
         dl1 = -0.25 * b / (s * s) - 0.25 * a / (c * c)
@@ -99,7 +100,7 @@ def jastrow_fn(nspins, params: dict):
         for pairs, name, coef in ((par, "ee_par", 0.25), (anti, "ee_anti", 0.5)):
             if not pairs:
                 continue
-            i, j = (list(v) for v in zip(*pairs))
+            i, j = (constant(v, torch.long, data.device) for v in zip(*pairs))
             delta = x[..., i, :] - x[..., j, :]
             ddelta = first[..., i, :] - first[..., j, :]
             d2delta = second[..., i, :] - second[..., j, :]

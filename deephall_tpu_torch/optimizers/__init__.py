@@ -62,16 +62,22 @@ def state_to(tree, device):
     return tree
 
 
-def make_optimizer_step(cfg: Config, model):
-    """Build the ``(init, step)`` pair of the configured optimizer."""
+def make_optimizer_step(cfg: Config, model, fixed_states=None):
+    """Build the ``(init, step)`` pair of the configured optimizer.
+
+    ``fixed_states``: callables ``data -> log phi_j`` of converged lower states,
+    whose overlap penalties enter the loss (excited-state runs).  Every step is
+    ``step(state, penalties=None)``, ``penalties`` the dynamic-penalty operands.
+    """
     if cfg.optim.optimizer == OptimizerName.none:
-        return make_inference_step(make_loss_fn(model, cfg.system, LossMode.ENERGY_DIFF))
+        return make_inference_step(
+            make_loss_fn(model, cfg.system, LossMode.ENERGY_DIFF, fixed_states))
     if cfg.optim.optimizer == OptimizerName.adam:
-        loss_grad_fn = make_loss_fn(model, cfg.system, LossMode.ENERGY_GRAD)
+        loss_grad_fn = make_loss_fn(model, cfg.system, LossMode.ENERGY_GRAD, fixed_states)
         return make_adam_training_step(cfg.optim.adam, loss_grad_fn, model)
     if cfg.optim.optimizer == OptimizerName.kfac:
         # The Psiformer (the only network ported): one shared forward serves
         # the gradient and the curvature capture.
-        capture_fn = make_loss_and_capture_fn(model, cfg.system)
+        capture_fn = make_loss_and_capture_fn(model, cfg.system, fixed_states)
         return make_kfac_training_step(cfg.optim.kfac, capture_fn, model, sum(cfg.system.nspins))
     raise ValueError(f"Optimizer {cfg.optim.optimizer} is not implemented!")

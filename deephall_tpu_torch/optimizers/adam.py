@@ -20,7 +20,7 @@ B1, B2, EPS = 0.9, 0.999, 1e-8
 
 
 def make_adam_training_step(optim_cfg: OptimizerAdam, loss_grad_fn, model):
-    """``(init, step)``; ``loss_grad_fn(data) -> (stats, grads)`` (``ENERGY_GRAD``)."""
+    """``(init, step)``; ``loss_grad_fn(data, penalties) -> (stats, grads)`` (``ENERGY_GRAD``)."""
     params = dict(model.named_parameters())
 
     def zeros() -> dict:
@@ -31,8 +31,8 @@ def make_adam_training_step(optim_cfg: OptimizerAdam, loss_grad_fn, model):
         device = next(iter(params.values())).device
         return AdamState(torch.zeros((), dtype=torch.int32, device=device), zeros(), zeros())
 
-    def step(state: CheckpointState):
-        stats, grads = loss_grad_fn(state.data)
+    def step(state: CheckpointState, penalties: dict | None = None):
+        stats, grads = loss_grad_fn(state.data, penalties) if penalties else loss_grad_fn(state.data)
         opt = state.opt_state
         with torch.no_grad():
             count = opt.count + 1

@@ -17,7 +17,8 @@ Factors are EMA'd from zeros with the ``weight`` normaliser.  The update solves
 pi-split damping, takes the learning rate at the step before the increment,
 and scales the step by ``min(1, sqrt(c / (lr^2 d^T F d)))``, the norm
 constraint.  Factor products and solves are ``torch.matmul`` and
-``torch.linalg.solve``; parameters are updated in place.
+``torch.linalg.solve_ex``; parameters are updated in place, and nothing is
+read back to the host.
 """
 
 from __future__ import annotations
@@ -105,8 +106,10 @@ def precondition(specs: list[LayerSpec], state: KfacState, grads: dict, damping:
             gmat = kernel.reshape(-1, dim_g)
             if spec.has_bias:
                 gmat = torch.cat([gmat, grads[f"{spec.name}.bias"].reshape(1, dim_g)], dim=0)
-            delta = torch.linalg.solve(a_damped, gmat)  # A^-1 g G^-1
-            delta = torch.linalg.solve(g_damped, delta.T).T
+            # A^-1 g G^-1; solve_ex leaves its info on the device, as
+            # jnp.linalg.solve has none: the host does not wait for it.
+            delta = torch.linalg.solve_ex(a_damped, gmat).result
+            delta = torch.linalg.solve_ex(g_damped, delta.T).result.T
             quad = quad + torch.sum(delta * (a_damped @ delta @ g_damped))
             if spec.has_bias:
                 updates[f"{spec.name}.bias"] = delta[-1].reshape(grads[f"{spec.name}.bias"].shape)
@@ -155,7 +158,7 @@ def kfac_update(optim_cfg: OptimizerKfac, specs: list[LayerSpec], params: dict,
 
 
 def make_kfac_training_step(optim_cfg: OptimizerKfac, capture_fn, model, nelec: int):
-    """``(init, step)``; ``capture_fn(data) -> (stats, grads, inputs, dy)``
+    """``(init, step)``; ``capture_fn(data, penalties) -> (stats, grads, inputs, dy)``
     (``loss.make_loss_and_capture_fn``).  The step's statistics carry the
     learning rate, the norm-constraint coefficient and ``d^T F d`` besides."""
     params = dict(model.named_parameters())
@@ -182,8 +185,9 @@ def make_kfac_training_step(optim_cfg: OptimizerKfac, capture_fn, model, nelec: 
                 diag[spec.path] = {"scale": zeros(spec.fan_out), "bias": zeros(spec.fan_out)}
         return KfacState(kron, diag, zeros(), torch.zeros((), dtype=torch.int32, device=device))
 
-    def step(state: CheckpointState):
-        stats, grads, inputs, dy = capture_fn(state.data)
+    def step(state: CheckpointState, penalties: dict | None = None):
+        stats, grads, inputs, dy = (
+            capture_fn(state.data, penalties) if penalties else capture_fn(state.data))
         opt_state, info = kfac_update(optim_cfg, layer_specs(), params, state.opt_state,
                                       grads, inputs, dy)
         return state._replace(opt_state=opt_state), {**stats, **info}

@@ -10,14 +10,15 @@ from deephall_tpu_torch.types import CheckpointState
 
 
 def make_inference_step(loss_diff_fn):
-    """``(init, step)``: ``init`` keeps no state; ``step(state) -> (state, stats)``."""
+    """``(init, step)``: ``init`` keeps no state; ``step(state, penalties=None) -> (state, stats)``."""
 
     def init(model, data):
         del model, data
         return None
 
-    def step(state: CheckpointState):
-        stats, _ = loss_diff_fn(state.data)
+    def step(state: CheckpointState, penalties: dict | None = None):
+        # The operands only when present, so that plain ``(data)`` losses keep working.
+        stats, _ = loss_diff_fn(state.data, penalties) if penalties else loss_diff_fn(state.data)
         return state, stats
 
     return init, step

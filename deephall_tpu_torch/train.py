@@ -2,11 +2,14 @@
 
 Uniform walker init on the sphere or a restored checkpoint, the optimizer
 state restored (and dropped if it belongs to another optimizer) or
-initialised, burn-in and the initial-energy probe on a run that starts at step
-0, then per iteration: MCMC sweep -> width adaptation -> optimizer step (KFAC,
-Adam or inference) -> CSV row -> checkpoint, with the optimizer state, on
-(time AND step multiple) OR NaN OR last step OR SIGTERM.  Iterations run one
-per Python loop turn.
+initialised, the fixed lower states of an excited-state run loaded, burn-in
+and the initial-energy probe on a run that starts at step 0, then blocks of
+``optim.block_size`` iterations: per iteration MCMC sweep -> width adaptation
+-> optimizer step (KFAC, Adam or inference), all on the device; per block one
+read of the block's statistics to the host -> CSV rows -> checkpoint, with the
+optimizer state, on (time AND step multiple) OR NaN OR last step OR SIGTERM.
+``log.profile_dir`` records a ``torch.profiler`` trace of the blocks that
+cover ``[profile_start, profile_start + profile_steps)``.
 
 The sweep runs under ``no_grad`` with its feature tower in bfloat16 unless
 ``DEEPHALL_MCMC_DTYPE`` says ``f32`` (the JAX package's variable and default);
@@ -25,6 +28,7 @@ import signal
 import sys
 import time
 from argparse import ArgumentParser
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -33,6 +37,7 @@ import yaml
 from deephall_tpu_torch import mcmc, optimizers
 from deephall_tpu_torch.config import (
     Config,
+    NetworkType,
     OptimizerName,
     dotlist_to_dict,
     merge_dicts,
@@ -40,8 +45,9 @@ from deephall_tpu_torch.config import (
     to_dict,
 )
 from deephall_tpu_torch.log import LogManager, init_logging
-from deephall_tpu_torch.loss import LossMode, make_loss_fn
+from deephall_tpu_torch.loss import PENALTY_KEYS, LossMode, make_loss_fn
 from deephall_tpu_torch.networks import make_network
+from deephall_tpu_torch.observables import runner
 from deephall_tpu_torch.types import CheckpointState
 from deephall_tpu_torch.utils import resolve_device, set_full_precision
 from deephall_tpu_torch.weights import init_params, load_flax, params_to_flax
@@ -49,6 +55,7 @@ from deephall_tpu_torch.weights import init_params, load_flax, params_to_flax
 set_full_precision()
 
 logger = logging.getLogger("deephall")
+
 
 def init_guess(generator: torch.Generator, batch: int, nelec: int, device) -> torch.Tensor:
     """Uniform samples on the sphere: ``[batch, nelec, 2]`` (theta, phi)."""
@@ -65,13 +72,121 @@ def sweep_dtype() -> torch.dtype | None:
     return None
 
 
-def _host(v) -> float | complex:
-    v = v.detach().cpu()
-    return complex(v) if v.is_complex() else float(v)
+def load_fixed_states(cfg: Config, device) -> list | None:
+    """``system.orthogonal_states`` as callables ``data -> log phi_j`` on ``device``.
+
+    Each checkpoint (with its ``config.yml`` sidecar) is a converged lower
+    state of an excited-state run: a float32 module with frozen parameters,
+    evaluated without gradients.
+
+    Raises:
+        ValueError: if a fixed state was trained on another system (flux,
+            electron count, radius).
+        NotImplementedError: if its network is not the Psiformer.
+    """
+    if not cfg.system.orthogonal_states:
+        return None
+    fixed = []
+    for path in cfg.system.orthogonal_states:
+        fcfg = runner.load_config(path)
+        same_system = (
+            fcfg.system.flux == cfg.system.flux
+            and tuple(fcfg.system.nspins) == tuple(cfg.system.nspins)
+            and fcfg.system.radius == cfg.system.radius
+        )
+        if not same_system:
+            raise ValueError(
+                f"orthogonal state {path} was trained on a different system "
+                f"(flux={fcfg.system.flux}, nspins={fcfg.system.nspins}, "
+                f"radius={fcfg.system.radius})"
+            )
+        if fcfg.network.type != NetworkType.psiformer:
+            raise NotImplementedError(
+                f"orthogonal state {path}: the {fcfg.network.type} network is not ported "
+                "yet: ROADMAP queue 1, item 7 (analytic wavefunctions)."
+            )
+        _, model, _, _, _ = runner.load_run(path)
+        fixed.append(_frozen(model.to(device).requires_grad_(False)))
+        logger.info("Orthogonality penalty against %s", path)
+    return fixed
+
+
+def _frozen(model):
+    def log_phi(data: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            return model(data)
+
+    return log_phi
+
+
+def penalty_operands(cfg: Config, device) -> dict | None:
+    """The dynamic-penalty operands (``system.dynamic_penalties``): 0-d float32
+    tensors on ``device``, made once per run."""
+    if not cfg.system.dynamic_penalties:
+        return None
+    return {k: torch.tensor(float(getattr(cfg.system, k)), device=device) for k in PENALTY_KEYS}
+
+
+def make_iteration_block(cfg: Config, mcmc_step, training_step):
+    """``length`` iterations at a time on the device (``deephall_tpu/train.py:
+    make_iteration_block``).
+
+    Args:
+        cfg: the run's configuration (``mcmc.adapt_frequency``).
+        mcmc_step: ``(data, width) -> (data, pmove)``, drawing from the run's
+            generator, so that the draws do not depend on how iterations are
+            grouped into blocks.
+        training_step: ``(state, penalties) -> (state, stats)``.
+
+    Returns:
+        ``block(state, pmoves, t, length, penalties=None) -> (state, pmoves, t,
+        stats, pmove)``: ``state.mcmc_width``, the acceptance ring ``pmoves``
+        and the iteration counter ``t`` are device tensors; ``stats`` is
+        ``{key: [length] tensor}`` and ``pmove`` ``[length]``, stacked on the
+        device.  Nothing in a block reads a value back to the host.
+    """
+    adapt = cfg.mcmc.adapt_frequency
+
+    def block(state, pmoves, t, length: int, penalties=None):
+        rows, pmove_rows = [], []
+        for _ in range(length):
+            with torch.no_grad():
+                data, pmove = mcmc_step(state.data, state.mcmc_width)
+            width, pmoves = mcmc.adapt_width(t, state.mcmc_width, pmoves, pmove, adapt)
+            t = t + 1
+            state, stats = training_step(state._replace(data=data, mcmc_width=width), penalties)
+            rows.append(stats)
+            pmove_rows.append(pmove)
+        device = state.data.device
+        stats = {k: torch.stack([torch.as_tensor(row[k], device=device) for row in rows])
+                 for k in rows[0]}
+        return state, pmoves, t, stats, torch.stack(pmove_rows)
+
+    return block
+
+
+def host_rows(stats: dict, pmove: torch.Tensor) -> list[dict]:
+    """A block's statistics as one row of host numbers per iteration, read in one copy."""
+    columns, layout = [], []
+    for key, v in stats.items():
+        parts = (v.real, v.imag) if v.is_complex() else (v,)
+        layout.append((key, len(parts)))
+        columns.extend(p.to(torch.float64) for p in parts)
+    table = torch.stack([*columns, pmove.to(torch.float64)]).cpu().numpy()
+    rows = []
+    for i in range(table.shape[1]):
+        row, j = {}, 0
+        for key, n in layout:
+            row[key] = complex(table[j, i], table[j + 1, i]) if n == 2 else float(table[j, i])
+            j += n
+        row["pmove"] = float(table[j, i])
+        rows.append(row)
+    return rows
 
 
 def _write_row(writer, row: dict) -> None:
     """One ``train_stats.csv`` row, with the JAX package's fields and formats."""
+    extra = {"overlap": f"{row['overlap']:.4f}"} if "overlap" in row else {}
     writer.log(
         step=str(row["step"]),
         pmove=f"{row['pmove']:.2f}",
@@ -84,18 +199,48 @@ def _write_row(writer, row: dict) -> None:
         Lz_square=f"{row['angular_momentum_z_square']:.4f}",
         L_square=f"{row['angular_momentum_square']:.4f}",
         step_time=f"{row['step_time']:.4f}",
+        **extra,
     )
+
+
+class Profile:
+    """``torch.profiler`` over a window of iterations, written as a Chrome trace."""
+
+    def __init__(self, cfg: Config, device: torch.device):
+        self.cfg, self.device = cfg.log, device
+        self.profiler = None
+        self.done = cfg.log.profile_dir is None
+
+    def before_block(self, rel: int, length: int) -> None:
+        """Start before the block that reaches ``profile_start``; stop at the
+        first block that begins past the window (``rel`` counts from the run's
+        first step)."""
+        if self.done:
+            return
+        if self.profiler is None and rel + length > self.cfg.profile_start:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self.profiler = torch.profiler.profile(activities=activities)
+            self.profiler.start()
+        elif self.profiler is not None and rel >= self.cfg.profile_start + self.cfg.profile_steps:
+            self.stop()
+
+    def stop(self) -> None:
+        if self.profiler is None:
+            return
+        self.profiler.stop()
+        path = Path(self.cfg.profile_dir)
+        path.mkdir(parents=True, exist_ok=True)
+        self.profiler.export_chrome_trace(str(path / "trace.json"))
+        logger.info("Saved profiler trace to %s", path / "trace.json")
+        self.profiler, self.done = None, True
 
 
 def train(cfg: Config, device: str | torch.device = "cuda") -> list[dict]:
     """Run the VMC loop; returns each iteration's statistics as host numbers."""
     device = resolve_device(device)
     init_logging()
-    if cfg.system.orthogonal_states:
-        raise NotImplementedError(
-            "system.orthogonal_states is not ported yet: ROADMAP queue 1, item "
-            "'Excited states and the rest of the loss'."
-        )
     log_manager = LogManager(cfg)
     nelec = sum(cfg.system.nspins)
     generator = torch.Generator(device=device)
@@ -120,6 +265,7 @@ def train(cfg: Config, device: str | torch.device = "cuda") -> list[dict]:
     if cfg.optim.optimizer == OptimizerName.none:
         model.requires_grad_(False)
     data = data.to(device)
+    mcmc_width = torch.tensor(mcmc_width, dtype=torch.float32, device=device)
 
     if (
         cfg.optim.optimizer == OptimizerName.none
@@ -130,7 +276,8 @@ def train(cfg: Config, device: str | torch.device = "cuda") -> list[dict]:
 
     dtype = sweep_dtype()
     mcmc_step = mcmc.make_mcmc_step(lambda x: model(x, dtype), steps=cfg.mcmc.steps)
-    opt_init, training_step = optimizers.make_optimizer_step(cfg, model)
+    fixed_states = load_fixed_states(cfg, device)
+    opt_init, training_step = optimizers.make_optimizer_step(cfg, model, fixed_states)
     if opt_state is None:
         opt_state = opt_init(model, data)
     else:
@@ -143,15 +290,22 @@ def train(cfg: Config, device: str | torch.device = "cuda") -> list[dict]:
                 data, _ = mcmc_step(data, mcmc_width, generator)
             logger.info("Burn in MCMC complete")
             if cfg.log.initial_energy:
-                stats, _ = make_loss_fn(model, cfg.system, LossMode.ENERGY_DIFF)(data)
-                logger.info("Initial energy: %s", _host(stats["energy"]).real)
+                probe = make_loss_fn(model, cfg.system, LossMode.ENERGY_DIFF, fixed_states)
+                stats, _ = probe(data)
+                logger.info("Initial energy: %s", stats["energy"].real.item())
 
+    penalties = penalty_operands(cfg, device)
     state = CheckpointState(None, data, opt_state, mcmc_width)
+    # The width ring and its counter survive a save/restore boundary.
     pmoves = adapt_restored.get("pmoves")
     if pmoves is None or pmoves.shape != (cfg.mcmc.adapt_frequency,):
         pmoves = np.zeros(cfg.mcmc.adapt_frequency, dtype=np.float32)
-    pmoves = np.array(pmoves, dtype=np.float32)
-    t = int(adapt_restored.get("t", 0))
+    pmoves = torch.tensor(np.asarray(pmoves, dtype=np.float32), device=device)
+    t = torch.tensor(int(adapt_restored.get("t", 0)), dtype=torch.int32, device=device)
+    block = make_iteration_block(
+        cfg, lambda x, width: mcmc_step(x, width, generator), training_step)
+    block_size = max(1, cfg.optim.block_size)
+    profile = Profile(cfg, device)
 
     history = []
     last_save_time = time.time()
@@ -161,21 +315,18 @@ def train(cfg: Config, device: str | torch.device = "cuda") -> list[dict]:
             writer.hide("kinetic", "potential", "Lz_square", "step_time")
             step = initial_step
             while step < cfg.optim.iterations:
+                length = min(block_size, cfg.optim.iterations - step)
+                profile.before_block(step - initial_step, length)
                 start = time.perf_counter()
-                with torch.no_grad():
-                    data, pmove = mcmc_step(state.data, state.mcmc_width, generator)
-                pmove = float(pmove)
-                width = mcmc.update_mcmc_width(
-                    t, state.mcmc_width, cfg.mcmc.adapt_frequency, pmove, pmoves
-                )
-                t += 1
-                state, stats = training_step(state._replace(data=data, mcmc_width=width))
-                row = {k: _host(v) for k, v in stats.items()}
-                row.update(step=step, pmove=pmove, step_time=time.perf_counter() - start)
-                history.append(row)
-                _write_row(writer, row)
-                step += 1
-                energy_is_nan = math.isnan(row["energy"].real)
+                state, pmoves, t, stats, pmove = block(state, pmoves, t, length, penalties)
+                rows = host_rows(stats, pmove)
+                step_time = (time.perf_counter() - start) / length
+                for i, row in enumerate(rows):
+                    row.update(step=step + i, step_time=step_time)
+                    _write_row(writer, row)
+                history.extend(rows)
+                step += length
+                energy_is_nan = any(math.isnan(row["energy"].real) for row in rows)
                 current_time = time.time()
                 if (
                     (
@@ -190,14 +341,14 @@ def train(cfg: Config, device: str | torch.device = "cuda") -> list[dict]:
                     writer.force_flush()
                     log_manager.save_checkpoint(
                         step - 1,
-                        CheckpointState(
-                            params_to_flax(model), state.data, state.opt_state, state.mcmc_width
-                        ),
-                        adapt={"pmoves": pmoves, "t": np.int32(t)},
+                        CheckpointState(params_to_flax(model), state.data, state.opt_state,
+                                        state.mcmc_width.item()),
+                        adapt={"pmoves": pmoves.cpu().numpy(), "t": np.int32(t.item())},
                     )
                 if killer.kill_now or energy_is_nan:
                     raise SystemExit("=" * 30 + " ABORT " + "=" * 30)
     finally:
+        profile.stop()
         killer.restore()
     return history
 

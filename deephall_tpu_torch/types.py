@@ -30,7 +30,11 @@ class OtherObservables(AngularMomenta):
 
 
 class LossStats(OtherObservables):
-    """Per-step statistics (batch means)."""
+    """Per-step statistics (batch means).
+
+    Excited-state runs (``system.orthogonal_states``) also carry a real
+    ``overlap`` key: the summed normalised overlaps with the fixed lower states.
+    """
 
     energy: torch.Tensor
     variance: torch.Tensor

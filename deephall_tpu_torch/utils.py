@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -25,3 +27,16 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             "pass device='cpu' (--device cpu) to run on the CPU."
         )
     return device
+
+
+@functools.cache
+def constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The tensor of ``values`` on ``device``, made once and shared (read only).
+
+    Each entry is written by a fill on the device: a tensor copied from the
+    host would make the host wait for the card's queue.
+    """
+    out = torch.empty(len(values), dtype=dtype, device=device)
+    for i, value in enumerate(values):
+        out[i].fill_(value)
+    return out

@@ -40,9 +40,9 @@ from deephall_tpu_torch.ops import _build  # noqa: E402
 from deephall_tpu_torch.ops import jet_attention as ja  # noqa: E402
 
 STORE = "if (row < M) *reinterpret_cast<float4*>(C + row * N + col) = out;"
-REFILL = "    load_stage(f + STAGES - 1);\n    if (f + 1 < steps) load_a(f + 1, 0, hi0, lo0);"
-OPERAND = "    load_a(f, 1, hi1, lo1);\n    products(f, acc1"
-PROLOGUE = "  load_a(0, 0, hi0, lo0);\n"
+REFILL = "    load_stage(f + 2);\n"
+OPERAND = "      load_a(f, r, hi, lo);\n"
+PROLOGUE = "  int step_in_tile = 0, tiles_done = 0;\n"
 PRODUCTS_START = "      wgmma_m64n128k8(d, lo[4 * kk]"
 PRODUCTS_END = "dhi + 2 * kk, 1);"
 
@@ -56,11 +56,11 @@ def substitute(text: str, old: str, new: str) -> str:
 def variants(source: str) -> dict[str, str]:
     start = source.index(PRODUCTS_START)
     end = source.index(PRODUCTS_END, start) + len(PRODUCTS_END)
-    products_only = substitute(source, REFILL, "    cp_async_commit();")
-    products_only = substitute(products_only, OPERAND, "    products(f, acc1")
-    products_only = substitute(products_only, PROLOGUE, PROLOGUE + "  load_a(0, 1, hi1, lo1);\n")
+    products_only = substitute(source, REFILL, "    cp_async_commit();\n")
+    products_only = substitute(products_only, OPERAND, "")
+    products_only = substitute(products_only, PROLOGUE, "  load_a(0, 0, hi, lo);\n" + PROLOGUE)
     keep_registers = ("      d[kk] += __uint_as_float(hi[4 * kk] ^ lo[4 * kk + 1]) +"
-                      " __uint_as_float(hi[4 * kk + 2] ^ lo[4 * kk + 3]) + accumulate;")
+                      " __uint_as_float(hi[4 * kk + 2] ^ lo[4 * kk + 3]) + f;")
     return {
         "kernel": source,
         "no_store": substitute(source, STORE, STORE.replace("row < M", "row < M && bias_rows < -1")),

@@ -78,7 +78,8 @@ def test_stats_and_clipped_diff_match(variant):
         penalties=penalties,
     )
     got_stats, got_diff = loss.stats_and_clipped_diff(
-        system, torch.from_numpy(el), {k: torch.from_numpy(v) for k, v in obs.items()}
+        system, torch.from_numpy(el), {k: torch.from_numpy(v) for k, v in obs.items()},
+        penalties=None if penalties is None else {k: torch.tensor(float(v)) for k, v in penalties.items()},
     )
     assert sorted(got_stats) == sorted(want_stats)
     for key, want in want_stats.items():
@@ -145,15 +146,19 @@ def test_cuda_requested_without_a_card_raises(tmp_path):
 
 @pytest.mark.parametrize("optimizer", ["kfac", "adam"])
 def test_training_optimizers_are_not_ported_yet(optimizer, tmp_path):
-    # Both training optimizers build; what of training is not ported yet, the
-    # excited states (system.orthogonal_states), raises and points to ROADMAP.
+    # Both training optimizers build; what of training is not ported yet, a
+    # fixed lower state of an analytic network (system.orthogonal_states),
+    # raises and points to ROADMAP.
     cfg = config.Config.from_dict({"optim": {"optimizer": optimizer}})
     model = make_network(cfg.system, cfg.network)
     init, step = make_optimizer_step(cfg, model)
     assert callable(init) and callable(step)
+    fixed = tmp_path / "laughlin"
+    fixed.mkdir()
+    (fixed / "config.yml").write_text(config.to_yaml(config.Config.from_dict({"network": {"type": "laughlin"}})))
     cfg = config.Config.from_dict({
-        "optim": {"optimizer": optimizer}, "log": {"save_path": str(tmp_path)},
-        "system": {"orthogonal_states": [str(tmp_path / "ckpt_000000.npz")]},
+        "optim": {"optimizer": optimizer}, "log": {"save_path": str(tmp_path / "run")},
+        "system": {"orthogonal_states": [str(fixed / "ckpt_000000.npz")]},
     })
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train.train(cfg, device="cpu")

@@ -11,6 +11,7 @@ kernel tests hold the Pallas kernels against their chains.
 
 from __future__ import annotations
 
+import json
 import math
 
 import pytest
@@ -189,3 +190,69 @@ def test_kernels_refuse_what_they_do_not_take(device):
     a = torch.randn(8, 16, device=device).t()  # not contiguous
     with pytest.raises(ValueError):
         jet_attention.jet_gemm(a, torch.randn(8, 4, device=device), torch.zeros(4, device=device), 2)
+
+
+def cancelling_rows(gen, m, k, n, per_row=64, keep=1e-2):
+    """Rows ``a`` whose products with ``per_row`` columns of ``w`` cancel to about 1e-3.
+
+    Row ``i`` belongs to group ``g = i % (n // per_row)``: with ``P`` the
+    projection onto that group's columns of ``w``, ``a = u - P u + keep * P u``,
+    so that ``a @ w[:, j]`` of a column ``j`` of the group is ``keep`` times
+    ``u @ w[:, j]``, about 1e-3 of ``sum_k |a_k| |w_kj|``.  Returns ``(a, w, mask)``
+    with ``mask`` marking the cancelling outputs; built in float64.
+    """
+    device = gen.device
+    w = torch.randn(k, n, generator=gen, device=device) / math.sqrt(k)
+    u = torch.randn(m, k, generator=gen, device=device, dtype=torch.float64)
+    a = torch.empty(m, k, dtype=torch.float64, device=device)
+    mask = torch.zeros(m, n, dtype=torch.bool, device=device)
+    groups = n // per_row
+    for g in range(groups):
+        cols = slice(g * per_row, (g + 1) * per_row)
+        q, _ = torch.linalg.qr(w[:, cols].double())
+        pu = (u[g::groups] @ q) @ q.T
+        a[g::groups] = u[g::groups] - pu + keep * pu
+        mask[g::groups, cols] = True
+    return a.float(), w, mask
+
+
+def quantile(x: torch.Tensor, q: float) -> float:
+    x = x.flatten().sort().values
+    return x[min(int(q * x.numel()), x.numel() - 1)].item()
+
+
+def test_gemm_accuracy_on_cancelling_rows(device):
+    """The tensor-core jet_gemm against float64 where rows cancel, at the q/k/v shape.
+
+    Each output's error is taken relative to ``sum_k |a_k| |w_k|``, its scale
+    before cancellation.  A float32 product's rounding error is a fixed share
+    of that scale, so on the cancelling outputs the tensor-core kernel's median
+    and 99.9th percentile must stay within 1.5x of the float32 CUDA-core
+    kernel's (``torch.matmul`` with TF32 off is printed beside them).
+    """
+    m, k, n = 20160, 256, 768
+    gen = torch.Generator(device=device).manual_seed(5)
+    a, w, mask = cancelling_rows(gen, m, k, n)
+    bias = torch.zeros(n, device=device)
+    exact = a.double() @ w.double()
+    scale = a.double().abs() @ w.double().abs()
+    assert quantile((exact.abs() / scale)[mask], 0.5) < 2e-3
+    fn = jet_attention.jet_gemm
+    before = fn.launches_tensor_core
+    paths = {
+        "tensor_cores": fn(a, jet_attention.split_weight(w), bias, 0),
+        "cuda_cores": fn(a, w, bias, 0),
+        "matmul": torch.matmul(a, w),
+    }
+    torch.cuda.synchronize()
+    assert fn.launches_tensor_core == before + 1
+    report = {}
+    for name, got in paths.items():
+        err = (got.double() - exact).abs() / scale
+        report[name] = {f"{part}_{label}": quantile(err[sel], q)
+                        for part, sel in (("cancelling", mask), ("other", ~mask))
+                        for label, q in (("median", 0.5), ("p999", 0.999))}
+    print(json.dumps({"gemm_accuracy": report, "m": m, "k": k, "n": n}))
+    for stat in ("cancelling_median", "cancelling_p999"):
+        got, limit = report["tensor_cores"][stat], 1.5 * report["cuda_cores"][stat]
+        assert got <= limit, f"{stat}: tensor cores {got:.3e} > 1.5x CUDA cores ({limit:.3e})"

@@ -22,7 +22,7 @@ from deephall_tpu import mcmc as jax_mcmc
 from deephall_tpu.networks import make_network as jax_make_network
 from deephall_tpu.train import make_iteration_block
 from deephall_tpu.types import CheckpointState as JaxState
-from deephall_tpu_torch import config, mcmc
+from deephall_tpu_torch import config, mcmc, train
 from deephall_tpu_torch.networks import make_network
 from deephall_tpu_torch.weights import load_flax
 
@@ -131,11 +131,28 @@ def test_width_ring_matches_iteration_block():
     )
     np.testing.assert_array_equal(np.asarray(jpmove), seq)
 
-    width, pmoves = 0.1, np.zeros(adapt, np.float32)
-    for t in range(length):
-        width = mcmc.update_mcmc_width(t, width, adapt, float(seq[t]), pmoves)
-    assert int(jt) == length
-    np.testing.assert_array_equal(pmoves, np.asarray(jpmoves))
+    # The port's block with the same stubs: the ring, the counter and the width
+    # stay tensors, and the width is float32 throughout.
+    ttable = torch.from_numpy(seq)
+
+    def port_sweep(data, width):
+        del width
+        return data + 1, ttable[data[0, 0, 0].long()]
+
+    def port_step(state, penalties):
+        del penalties
+        return state, {"energy": state.data[0, 0, 0]}
+
+    port_block = train.make_iteration_block(config.Config.from_dict({"mcmc": {"adapt_frequency": adapt}}),
+                                            port_sweep, port_step)
+    pstate = train.CheckpointState(None, torch.zeros((1, 1, 2)), None, torch.tensor(0.1))
+    pstate, pmoves, t, stats, pmove = port_block(
+        pstate, torch.zeros(adapt), torch.tensor(0, dtype=torch.int32), length)
+    np.testing.assert_array_equal(pmove.numpy(), seq)
+    np.testing.assert_array_equal(stats["energy"].numpy(), np.arange(1, length + 1))
+    assert int(t) == int(jt) == length
+    np.testing.assert_array_equal(pmoves.numpy(), np.asarray(jpmoves))
+    assert pstate.mcmc_width.dtype == torch.float32
     # XLA folds the division by 1.1 into a product with its reciprocal.
-    np.testing.assert_allclose(width, np.asarray(state.mcmc_width), rtol=1e-6)
-    np.testing.assert_allclose(width, 0.1 * 1.1**2, rtol=1e-6)
+    np.testing.assert_allclose(pstate.mcmc_width.numpy(), np.asarray(state.mcmc_width), rtol=1e-6)
+    np.testing.assert_allclose(pstate.mcmc_width.numpy(), 0.1 * 1.1**2, rtol=1e-6)
