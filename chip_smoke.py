@@ -53,7 +53,23 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
    host reads (checkpoint saves apart), at most one synchronising call per
    block may occur (``torch.cuda.set_sync_debug_mode``; the profiled run's
    are listed).  Beside it, 5 inference iterations of the same state with its
-   fixed state (phase ``slice_excited``).
+   fixed state (phase ``slice_excited``);
+8. laughlin: the inference CLI on the analytic Laughlin state at N=6, 2Q=15
+   (``network.type=laughlin``), batch 3360, L^2 on, the default burn-in and
+   200 iterations, through the full-Hessian local energy: the mean energy
+   within 0.001 of 6.87306 (``BASELINE.md``), L^2 < 0.005, no NaN, and on the
+   last walkers the kinetic energy within 1e-3 of N/2 = 3 at the median
+   walker and in the batch mean; no kernel launches;
+9. hessian: the first 336 stored walkers of ``prod_r4`` through the kernel
+   jet, the plain float32 jet, the float32 full-Hessian path over the plain
+   forward and the float64 full-Hessian path: the kernel jet within 1e-4 of
+   each observable's RMS of the float32 Hessian path (median walker and batch
+   mean), and no farther from float64 than phase ``train`` allows against the
+   plain jet's distance; the kernels launched once each local energy's worth;
+10. ed_state: the exact ED ground state of N=6, 2Q=15 (Lz = 0, 338
+   determinants) in complex128 on the same walkers through the full-Hessian
+   path: the kinetic energy within 1e-6 of 3 and L^2 within 1e-6 of 0 at
+   every walker, the ED energy within 1e-6 of 6.87163491; no kernel launches.
 
 The line before the last is the kernel table; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -100,6 +116,16 @@ RESUME_STEP, TRAIN_ITERATIONS, ADAM_ITERATIONS = 20000, 10, 2
 # After training, each batch mean through the kernels within this share of its
 # standard error of the float64 batch mean.
 MEAN_SHIFT_SEM = 0.05
+# The analytic Laughlin state at N=6, 2Q=15 (BASELINE.md: 6.87306 +- 0.00006
+# over 2000 iterations, L^2 = 0); a lowest-Landau-level state, so its local
+# kinetic energy is N/2 = 3.
+LAUGHLIN_ITERATIONS, LAUGHLIN_ENERGY, LAUGHLIN_TOL = 200, 6.87306, 0.001
+LAUGHLIN_L2, LAUGHLIN_KINETIC, KINETIC_TOL = 0.005, 3.0, 1e-3
+# The Hessian and ED phases read the first walkers of prod_r4; the ED state's
+# [walkers, 338, 6, 6] complex128 determinants go through the Hessian path in
+# chunks of walkers.
+HESSIAN_WALKERS, ED_CHUNK = 336, 48
+ED_ENERGY, ED_TOL = 6.87163491, 1e-6
 # The jet LayerNorm takes under half a millisecond, and the host's work before
 # its launch an eighth to a sixth of that (measured on an H100 host): it is
 # timed over this many calls in a row.
@@ -958,6 +984,186 @@ def phase_excited(workdir: Path) -> dict:
     return counts
 
 
+def no_launches(phase: str, counts: dict) -> None:
+    if any(counts.values()):
+        raise AssertionError(f"{phase}: kernels launched: {counts}")
+
+
+def phase_laughlin(workdir: Path, device) -> None:
+    """Inference of the analytic Laughlin state at N=6, 2Q=15 through the CLI."""
+    from deephall_tpu_torch import loss, mcmc, train
+    from deephall_tpu_torch.log import LogManager
+    from deephall_tpu_torch.networks import make_network
+    from deephall_tpu_torch.observables import runner
+
+    save = workdir / "laughlin"
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    history = train.cli([
+        "system.nspins=[6,0]", "system.flux=15", "network.type=laughlin",
+        "optim.optimizer=none", f"batch_size={BATCH}",
+        f"optim.iterations={LAUGHLIN_ITERATIONS}", f"log.save_path={save}",
+    ])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # Per walker, on the run's last walkers.
+    ckpt = save / f"ckpt_{LAUGHLIN_ITERATIONS - 1:06d}.npz"
+    cfg = runner.load_config(ckpt)
+    _, final, _ = LogManager.restore_checkpoint(ckpt)
+    model = make_network(cfg.system, cfg.network).to(device)
+    data = torch.as_tensor(final.data, device=device)
+    local_energy = loss.batched_local_energy(model, cfg.system)
+    with torch.no_grad():
+        _, obs = local_energy(data)
+    kinetic = obs["kinetic"].real.double()
+    deviation = (kinetic - LAUGHLIN_KINETIC).abs()
+    sweep = mcmc.make_mcmc_step(lambda x: model(x, train.sweep_dtype()), steps=cfg.mcmc.steps)
+    gen = torch.Generator(device=device).manual_seed(0)
+    with torch.no_grad():
+        split = dict(sweep_ms=cuda_ms(lambda: sweep(data, float(final.mcmc_width), gen), reps=5),
+                     local_energy_ms=cuda_ms(lambda: local_energy(data), reps=5))
+
+    energies = np.array([row["energy"].real for row in history])
+    l_square = np.array([row["angular_momentum_square"] for row in history])
+    run_kinetic = np.array([row["kinetic"].real for row in history])
+    step_times = [row["step_time"] for row in history]
+    result = dict(
+        iterations=len(history), burn_in=cfg.mcmc.burn_in,
+        mean_energy=float(energies.mean()),
+        energy_sem=float(energies.std(ddof=1) / math.sqrt(len(energies))),
+        mean_l_square=float(l_square.mean()), max_l_square=float(np.abs(l_square).max()),
+        mean_kinetic_of_run=float(run_kinetic.mean()),
+        mean_variance=float(np.mean([row["variance"] for row in history])),
+        mean_pmove=float(np.mean([row["pmove"] for row in history])),
+        kinetic_median_walker=kinetic.median().item(), kinetic_batch_mean=kinetic.mean().item(),
+        kinetic_max_deviation=deviation.max().item(),
+        kinetic_max_deviation_theta=data[deviation.argmax(), :, 0].tolist(),
+        step_time_median_ms=statistics.median(step_times) * 1e3,
+        split_ms=split, wall_s=wall, peak_memory_gb=peak_gb, launches=counts,
+    )
+    emit(phase="laughlin", **result)
+    values = np.concatenate([energies, l_square, run_kinetic, kinetic.cpu().numpy()])
+    if len(history) != LAUGHLIN_ITERATIONS or not np.isfinite(values).all():
+        raise AssertionError("laughlin: missing iterations or a NaN")
+    if not abs(result["mean_energy"] - LAUGHLIN_ENERGY) <= LAUGHLIN_TOL:
+        raise AssertionError(f"laughlin: mean energy {result['mean_energy']} not within "
+                             f"{LAUGHLIN_TOL} of {LAUGHLIN_ENERGY}")
+    if not abs(result["mean_l_square"]) < LAUGHLIN_L2:
+        raise AssertionError(f"laughlin: mean L^2 {result['mean_l_square']} >= {LAUGHLIN_L2}")
+    for key in ("kinetic_median_walker", "kinetic_batch_mean"):
+        if not abs(result[key] - LAUGHLIN_KINETIC) <= KINETIC_TOL:
+            raise AssertionError(f"laughlin: {key} {result[key]} not within {KINETIC_TOL} of 3")
+    no_launches("laughlin", counts)
+
+
+def hessian_local_energy(model, system):
+    """The full-Hessian local energy of the Psiformer's plain forward, batched."""
+    from deephall_tpu_torch.hamiltonian import local_energy
+
+    return torch.func.vmap(local_energy(lambda x: model(x[None])[0], system))
+
+
+def phase_hessian(device) -> dict:
+    """The kernel jet against a derivative route that shares none of its rules."""
+    from deephall_tpu_torch.hamiltonian import forward_laplacian_local_energy
+
+    cfg, model, state = restored_model(GROUND_STATE, device)
+    model.requires_grad_(False)
+    model64 = copy.deepcopy(model).double()
+    data = torch.as_tensor(state.data[:HESSIAN_WALKERS], device=device)
+    routes = {
+        "kernels": (forward_laplacian_local_energy(model, cfg.system, kernels=True), data),
+        "plain": (forward_laplacian_local_energy(model, cfg.system, kernels=False), data),
+        "hessian": (hessian_local_energy(model, cfg.system), data),
+        "float64": (hessian_local_energy(model64, cfg.system), data.double()),
+    }
+    out, timing = {}, {}
+    with torch.no_grad():
+        for name, (fn, x) in routes.items():
+            if name == "kernels":
+                reset_counts()
+            el, obs = fn(x)
+            torch.cuda.synchronize()
+            if name == "kernels":
+                counts = launch_counts()
+            out[name] = {"energy": el, **obs}
+        for name, (fn, x) in routes.items():
+            timing[f"{name}_ms"] = cuda_ms(lambda: fn(x), reps=3, warmup=1)
+    report = {}
+    for key in out["float64"]:
+        vals = {name: v[key].real.double() for name, v in out.items()}
+        truth, hess = vals["float64"], vals["hessian"]
+        rms, rms_hess = truth.square().mean().sqrt().item(), hess.square().mean().sqrt().item()
+        mean = {name: v.mean().item() for name, v in vals.items()}
+        report[key] = dict(
+            rms=rms,
+            kernels_vs_hessian_mean_shift_rel=abs(mean["kernels"] - mean["hessian"]) / rms_hess,
+            kernels_vs_hessian_median_dev_rel=(vals["kernels"] - hess).abs().median().item() / rms_hess,
+            **{f"{name}_vs_float64_median_dev_rel": (vals[name] - truth).abs().median().item() / rms
+               for name in ("kernels", "plain", "hessian")},
+            **{f"{name}_vs_float64_mean_shift_rel": abs(mean[name] - mean["float64"]) / rms
+               for name in ("kernels", "plain", "hessian")},
+        )
+    expected = launches_per_local_energy(cfg.network.psiformer.num_layers)
+    emit(phase="hessian", walkers=HESSIAN_WALKERS, tolerance=END_TO_END_TOL, fields=report,
+         launches=counts, expected_launches=expected, **timing)
+    bad = [k for k, v in report.items()
+           if not (v["kernels_vs_hessian_mean_shift_rel"] <= END_TO_END_TOL
+                   and v["kernels_vs_hessian_median_dev_rel"] <= END_TO_END_TOL)]
+    if bad:
+        raise AssertionError(f"hessian: the kernel jet and the Hessian path differ in {bad}")
+    bad = float64_gate(report)
+    if bad:
+        raise AssertionError(f"hessian: the kernel jet is farther from float64 than float32 allows in {bad}")
+    if counts != expected:
+        raise AssertionError(f"hessian: launch counts {counts} != expected {expected}")
+    return counts
+
+
+def phase_ed_state(device) -> None:
+    """The exact ED ground state through the full-Hessian path in complex128."""
+    from deephall_tpu_torch.hamiltonian import local_energy
+    from deephall_tpu_torch.networks.edstate import make_ed_network
+
+    cfg, _, state = restored_model(GROUND_STATE, device)
+    start = time.perf_counter()
+    network, result = make_ed_network(cfg.system)
+    ed_s = time.perf_counter() - start
+    data = torch.as_tensor(state.data[:HESSIAN_WALKERS], device=device, dtype=torch.float64)
+    batched = torch.func.vmap(local_energy(network, cfg.system), chunk_size=ED_CHUNK)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    el, obs = batched(data)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    counts = launch_counts()
+    kinetic_dev = (obs["kinetic"] - LAUGHLIN_KINETIC).abs()
+    l2_dev = obs["angular_momentum_square"].abs()
+    total = result.total_energy(sum(cfg.system.nspins))
+    report = dict(
+        dim=result.dim, ed_seconds=ed_s, total_energy=total, ground_l2=result.ground_l2,
+        walkers=HESSIAN_WALKERS, dtype=str(el.dtype),
+        kinetic_max_deviation=kinetic_dev.max().item(), l_square_max_deviation=l2_dev.max().item(),
+        lz_max=obs["angular_momentum_z"].abs().max().item(),
+        mean_local_energy=el.real.mean().item(),
+        local_energy_s=seconds, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches=counts,
+    )
+    emit(phase="ed_state", **report)
+    if result.dim != 338 or not torch.isfinite(el).all():
+        raise AssertionError("ed_state: wrong block or a NaN")
+    if not (report["kinetic_max_deviation"] <= ED_TOL and report["l_square_max_deviation"] <= ED_TOL):
+        raise AssertionError("ed_state: the kinetic energy or L^2 is off at a walker")
+    if not abs(total - ED_ENERGY) <= ED_TOL:
+        raise AssertionError(f"ed_state: ED energy {total} not within {ED_TOL} of {ED_ENERGY}")
+    no_launches("ed_state", counts)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -999,6 +1205,11 @@ def main() -> int:
         phase_end_to_end(device)
         train_counts = phase_train(Path(workdir), device)
         excited_counts = phase_excited(Path(workdir))
+        start = time.perf_counter()
+        phase_laughlin(Path(workdir), device)
+        hessian_counts = phase_hessian(device)
+        phase_ed_state(device)
+        emit(phase="slice_6_phases", seconds=time.perf_counter() - start)
 
     sources = {
         "jet_layernorm": ("deephall_tpu_torch/csrc/jet_layernorm.cu", "deephall_tpu/ops/jet_layernorm.py:58"),
@@ -1012,6 +1223,7 @@ def main() -> int:
         row = dict(name=kernel, route="cuda", source=source, replaces=replaces,
                    launches=counts[kernel], launches_train=train_counts[kernel],
                    launches_excited=excited_counts[kernel],
+                   launches_hessian=hessian_counts[kernel],
                    **table_numbers(kernels[(kernel, mode)]))
         if kernel == "jet_layernorm":
             row["launches_streamed"] = counts["jet_layernorm_streamed"]

@@ -1,9 +1,16 @@
 """Local energy of electrons on the monopole sphere (port of ``deephall_tpu/hamiltonian.py``).
 
 Kinetic energy with the monopole terms, Coulomb or "harmonic" interaction, and
-the Lz / Lz^2 / L^2 observables, all from one forward-Laplacian jet of
-``log psi`` (:mod:`deephall_tpu_torch.networks.fwdlap`).  The full-Hessian
-protocol path of the JAX package (``local_energy``) is not ported yet.
+the Lz / Lz^2 / L^2 observables, by two routes:
+
+* :func:`forward_laplacian_local_energy`, the Psiformer's: one forward-Laplacian
+  jet of ``log psi`` through the hand-written kernels
+  (:mod:`deephall_tpu_torch.networks.fwdlap`);
+* :func:`local_energy`, every other network's (the analytic Laughlin / CF and
+  ED states): the complex gradient and the full Hessian of a per-walker
+  ``log psi`` from one ``torch.func.jacrev`` of ``[Re, Im]`` under one
+  ``torch.func.jacfwd``, batched by ``torch.func.vmap``.  It shares none of
+  the jet's rules, which makes it the jet's cross-check.
 """
 
 from __future__ import annotations
@@ -16,7 +23,7 @@ import torch
 
 from deephall_tpu_torch.config import InteractionType, System
 from deephall_tpu_torch.geometry import pairwise_cos
-from deephall_tpu_torch.types import OtherObservables
+from deephall_tpu_torch.types import AngularMomenta, OtherObservables
 
 
 def _upper_mask(nelec: int, like: torch.Tensor) -> torch.Tensor:
@@ -54,6 +61,120 @@ def make_potential(
         return pair_fn(pairwise_cos(data))
 
     return potential
+
+
+def _assemble_observables(
+    theta: torch.Tensor,
+    phi: torch.Tensor,
+    grad: torch.Tensor,
+    hess: torch.Tensor,
+    Q: float,
+    r: float,
+) -> tuple[torch.Tensor, AngularMomenta]:
+    """Kinetic energy and angular momenta of one walker from the complex
+    gradient ``[N, 2]`` and Hessian ``[N, 2, N, 2]`` of ``log psi`` (the JAX
+    package's operator algebra, ``deephall_tpu/hamiltonian.py:_assemble_observables``)."""
+    g_theta, g_phi = grad[..., 0], grad[..., 1]
+    sin_t, cos_t, tan_t = torch.sin(theta), torch.cos(theta), torch.tan(theta)
+    h_tt = hess[:, 0, :, 0]
+    h_tp = hess[:, 0, :, 1]
+    h_pp = hess[:, 1, :, 1]
+
+    square_grad_logpsi = torch.sum(g_theta**2 + g_phi**2 / sin_t**2)
+    grad_grad_logpsi = torch.sum(
+        g_theta / tan_t + torch.diagonal(h_tt) + torch.diagonal(h_pp) / sin_t**2
+    )
+    magnetic_contribution = torch.sum((Q / tan_t) ** 2 + 2j * Q * cos_t / sin_t**2 * g_phi)
+    kinetic_energy = (-grad_grad_logpsi - square_grad_logpsi + magnetic_contribution) / 2 / r**2
+
+    # L^2 = sum over pairs of the angular-momentum operators' products; [3, N]
+    # Cartesian components, ``col`` / ``row`` the two electron axes.
+    r_hat = torch.stack([sin_t * torch.cos(phi), sin_t * torch.sin(phi), cos_t])
+    phi_hat = torch.stack([-torch.sin(phi), torch.cos(phi), torch.zeros_like(phi)])
+    theta_hat_prime = torch.stack(
+        [torch.cos(phi) / tan_t, torch.sin(phi) / tan_t, -torch.ones_like(theta)]
+    )
+
+    def col(x):
+        return x[..., :, None]
+
+    def row(x):
+        return x[..., None, :]
+
+    psi_tt = h_tt + col(g_theta) * row(g_theta)
+    psi_tp = h_tp + col(g_theta) * row(g_phi)
+    psi_pp = h_pp + col(g_phi) * row(g_phi)
+    magnetic_term = Q * (theta_hat_prime * cos_t + r_hat)
+    angular_momentum_square = torch.sum(
+        2 * col(phi_hat) * row(theta_hat_prime) * psi_tp
+        - col(phi_hat) * row(phi_hat) * psi_tt
+        - col(theta_hat_prime) * row(theta_hat_prime) * psi_pp
+        - (2j * row(magnetic_term))
+        * (col(phi_hat) * col(g_theta) - col(theta_hat_prime) * col(g_phi))
+        + col(magnetic_term) * row(magnetic_term)
+    ) - torch.sum(g_theta / tan_t)  # diagonal correction for non-commuting terms
+
+    return kinetic_energy, AngularMomenta(
+        angular_momentum_z=torch.sum(g_phi).imag,
+        angular_momentum_z_square=-torch.sum(psi_pp).real,
+        angular_momentum_square=angular_momentum_square.real,
+    )
+
+
+def make_local_kinetic_energy(f, Q: float, r: float):
+    """The per-walker local kinetic energy of ``f``.
+
+    Args:
+        f: complex ``log psi`` of one configuration, ``data [N, 2] -> []``.
+        Q: monopole strength (flux / 2).
+        r: sphere radius.
+
+    Returns:
+        ``ke(data [N, 2]) -> (kinetic_energy, AngularMomenta)``; batch it with
+        ``torch.func.vmap``.
+    """
+
+    def stacked_grad(x):
+        def re_im(y):
+            out = f(y)
+            return torch.stack([out.real, out.imag])
+
+        g = torch.func.jacrev(re_im)(x)
+        return g, g
+
+    def ke(data: torch.Tensor) -> tuple[torch.Tensor, AngularMomenta]:
+        hess_ri, grad_ri = torch.func.jacfwd(stacked_grad, has_aux=True)(data)
+        grad = torch.complex(grad_ri[0], grad_ri[1])  # [N, 2]
+        hess = torch.complex(hess_ri[0], hess_ri[1])  # [N, 2, N, 2]
+        return _assemble_observables(data[..., 0], data[..., 1], grad, hess, Q, r)
+
+    return ke
+
+
+def local_energy(f, system: System):
+    """The per-walker local energy of ``f`` by the full Hessian (JAX
+    ``hamiltonian.local_energy``).
+
+    Args:
+        f: complex ``log psi`` of one configuration, ``data [N, 2] -> []``.
+        system: system configuration (flux, radius, interaction).
+
+    Returns:
+        ``e_l(data [N, 2]) -> (E_L, OtherObservables)``; batch it with
+        ``torch.func.vmap``.
+    """
+    Q = system.flux / 2
+    radius = system.radius if system.radius is not None else math.sqrt(Q)
+    ke = make_local_kinetic_energy(f, Q, radius)
+    pe = make_potential(system.interaction_type, Q, radius)
+
+    def e_l(data: torch.Tensor) -> tuple[torch.Tensor, OtherObservables]:
+        potential = pe(data) * system.interaction_strength
+        kinetic, angular_momenta = ke(data)
+        return kinetic + potential, OtherObservables(
+            **angular_momenta, potential=potential, kinetic=kinetic)
+
+    return e_l
 
 
 def forward_laplacian_local_energy(model, system: System, kernels: bool = True):

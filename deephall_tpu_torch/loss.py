@@ -29,8 +29,9 @@ import enum
 import torch
 
 from deephall_tpu_torch.config import System
-from deephall_tpu_torch.hamiltonian import forward_laplacian_local_energy
+from deephall_tpu_torch.hamiltonian import forward_laplacian_local_energy, local_energy
 from deephall_tpu_torch.networks.blocks import FISHER_COTANGENT, kfac_capture
+from deephall_tpu_torch.networks.psiformer import Psiformer
 from deephall_tpu_torch.types import LossStats
 
 
@@ -199,14 +200,23 @@ def gradient_and_capture(model, system: System, data: torch.Tensor, el, other_ob
     return stats, _nan_to_num(params, grads), capture.inputs, dict(zip(paths, dy))
 
 
+def batched_local_energy(model, system: System):
+    """``data [B, N, 2] -> (E_L, OtherObservables)``: the forward-Laplacian jet
+    for the Psiformer, the full-Hessian path under ``torch.func.vmap`` for every
+    other network (``deephall_tpu/loss.py:make_loss_fn``)."""
+    if isinstance(model, Psiformer):
+        return forward_laplacian_local_energy(model, system)
+    return torch.func.vmap(local_energy(lambda x: model(x[None])[0], system))
+
+
 def make_loss_fn(model, system: System, mode: LossMode = LossMode.ENERGY_DIFF, fixed_states=None):
     """``loss_fn(data, penalties=None) -> (stats, diff_or_grads)`` for the given mode.
 
     ``ENERGY_DIFF`` returns the clipped per-walker differences, ``ENERGY_GRAD``
     the real gradients and ``SR_F_VECTOR`` the complex tangents, as
-    ``{dotted.name: tensor}``.
+    ``{dotted.name: tensor}`` (empty for a network without parameters).
     """
-    local_energy = forward_laplacian_local_energy(model, system)
+    local_energy = batched_local_energy(model, system)
 
     def loss_fn(data: torch.Tensor, penalties: dict | None = None):
         with torch.no_grad():
@@ -220,6 +230,8 @@ def make_loss_fn(model, system: System, mode: LossMode = LossMode.ENERGY_DIFF, f
             logpsi = model(data)
         log_ratios = fixed_state_log_ratios(fixed_states, logpsi, data) if fixed_states else None
         stats, diff = stats_and_clipped_diff(system, el, other_observables, log_ratios, penalties)
+        if not params:
+            return stats, {}
         w = vjp_weights(diff)
         sr = mode == LossMode.SR_F_VECTOR
         # Re[conj(grad logpsi) w] = grad(Re psi) . Re w + grad(Im psi) . Im w
@@ -240,7 +252,7 @@ def make_loss_and_capture_fn(model, system: System, fixed_states=None):
     """``fn(data, penalties=None) -> (stats, grads, inputs, dy)``: the energy gradient
     and the KFAC capture from one shared forward
     (``deephall_tpu/loss.py:make_loss_and_capture_fn``)."""
-    local_energy = forward_laplacian_local_energy(model, system)
+    local_energy = batched_local_energy(model, system)
 
     def fn(data: torch.Tensor, penalties: dict | None = None):
         with torch.no_grad():

@@ -3,10 +3,14 @@
 from torch import nn
 
 from deephall_tpu_torch.config import Network, NetworkType, System
+from deephall_tpu_torch.networks.laughlin import Laughlin
 from deephall_tpu_torch.networks.psiformer import Psiformer
 
 
 def make_network(system: System, network: Network) -> nn.Module:
+    if network.type == NetworkType.laughlin:
+        return Laughlin(nspins=tuple(system.nspins), flux=system.flux,
+                        excitation_lz=system.lz_center)
     if network.type == NetworkType.psiformer:
         return Psiformer(
             nspins=tuple(system.nspins),
@@ -17,12 +21,4 @@ def make_network(system: System, network: Network) -> nn.Module:
             num_layers=network.psiformer.num_layers,
             orbital_type=network.orbital,
         )
-    if network.type == NetworkType.laughlin:
-        raise NotImplementedError(
-            "The Laughlin wavefunction is not ported yet: ROADMAP queue 1, item "
-            "'Analytic wavefunctions and the Hessian protocol path'."
-        )
-    raise NotImplementedError(
-        f"Network type {network.type} is not ported yet: ROADMAP queue 1, item "
-        "'Analytic wavefunctions and the Hessian protocol path'."
-    )
+    raise ValueError(f"Unknown network type {network.type}")

@@ -131,7 +131,7 @@ class Dense(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """Layer normalisation over the last axis; statistics always in float32."""
+    """Layer normalisation over the last axis; statistics in float32 at least."""
 
     def __init__(self, features: int, epsilon: float = 1e-5):
         super().__init__()
@@ -141,7 +141,7 @@ class LayerNorm(nn.Module):
         self.kfac_record = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         mean = xf.mean(dim=-1, keepdim=True)
         var = torch.square(xf - mean).mean(dim=-1, keepdim=True)
         x_hat = ((xf - mean) * torch.rsqrt(var + self.epsilon)).to(x.dtype)

@@ -61,10 +61,10 @@ class PsiformerLayers(nn.Module):
     def forward(
         self, electrons: torch.Tensor, spins: torch.Tensor, dtype: torch.dtype | None = None
     ) -> torch.Tensor:
-        """Tower features ``[..., N, D]`` in float32.
+        """Tower features ``[..., N, D]`` in the dtype of ``electrons``.
 
         ``dtype`` (e.g. ``torch.bfloat16``) runs the attention stack in reduced
-        precision; the result is cast back to float32 for the orbital head.
+        precision; the result is cast back for the orbital head.
         """
         h = input_feature(electrons[..., 0], electrons[..., 1], spins)
         if dtype is not None:
@@ -76,7 +76,7 @@ class PsiformerLayers(nn.Module):
             h = self.layer(f"LayerNorm_{2 * i}")(h)
             h = h + torch.tanh(self.layer(f"Dense_{2 * i + 2}")(h))
             h = self.layer(f"LayerNorm_{2 * i + 1}")(h)
-        return h.float()
+        return h.to(electrons.dtype)
 
 
 class Psiformer(nn.Module):

@@ -1,7 +1,7 @@
 """Stored runs as models (port of ``deephall_tpu/observables/runner.py:load_run``).
 
 The estimators, the Metropolis chain of the runner and its CLI are not ported
-yet (ROADMAP queue 1, item 8).
+yet (ROADMAP queue 1, "Observables and the runner, with fsspec paths").
 """
 
 from __future__ import annotations
@@ -28,7 +28,8 @@ def load_run(ckpt_file: str | Path):
 
     Returns:
         ``(cfg, model, params, data, mcmc_width)``: ``model`` is a float32
-        module on the CPU with the checkpoint's parameters, ``params`` their
+        module on the CPU with the checkpoint's parameters (none for the
+        Laughlin / CF state, whose ``params`` are empty), ``params`` their
         flax tree of NumPy arrays, ``data`` the stored walkers.
     """
     cfg = load_config(ckpt_file)

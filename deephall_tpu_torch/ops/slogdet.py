@@ -4,13 +4,12 @@ The JAX package carries its own split-real, gather-free elimination because the
 TPU has no complex LU.  Here ``torch.linalg.lu_factor_ex`` factors the complex
 batch directly (cuBLAS / cuSOLVER on the card, LAPACK on the CPU), and the
 sign and log-magnitude are read off the LU diagonal and the pivot parity, so a
-determinant and its solves share a single factorisation.
+determinant and its solves share a single factorisation
+(:func:`slogdet_solve`, forward-only, as in the JAX package).
 
-:func:`slogdet` has a gradient, the JAX package's custom JVP
-``d log det A = tr(A^-1 dA)`` read backwards: its backward reuses the
-forward's LU for ``A^-H``, so neither the pivots nor the ``diag / |diag|``
-phase product are differentiated.  :func:`slogdet_solve` stays forward-only,
-as in the JAX package.
+:func:`slogdet` is the differentiable one: the gradient, the KFAC capture and
+the full-Hessian local energy (``hamiltonian.local_energy``, a second
+derivative) go through it.
 """
 
 from __future__ import annotations
@@ -33,31 +32,60 @@ def _slogdet_from_lu(lu: torch.Tensor, pivots: torch.Tensor):
 
 
 class _Slogdet(torch.autograd.Function):
-    """``(sign, log|det a|)`` with the backward of ``log det a = log|det a| + i arg``.
+    """``(sign, log|det a|)`` whose derivative rules are differentiable
+    operations on ``a``, so that it can be differentiated to any order, under
+    autograd and under ``torch.func``, as the JAX package's custom JVP
+    (``deephall_tpu/ops/slogdet.py:slogdet``) can.
 
-    For a real loss ``L``, the cotangent of the complex ``log det`` is
-    ``c = dL/dlog|det| + i dL/darg`` with ``dL/darg = Im(g_sign conj(sign))``
-    (``d sign = i sign d arg``), and since ``log det`` is holomorphic with
-    derivative ``A^-T``, the gradient is ``c A^-H``.  For real ``a`` the sign
-    is piecewise constant and the gradient is ``g_logabs A^-T``.
+    Forward mode: ``d log det A = tr(A^-1 dA)``, so ``d log|det| = Re tr`` and,
+    for complex ``A``, ``d sign = i Im(tr) sign``; a real sign is piecewise
+    constant.  Reverse mode, for a real loss: the cotangent of the complex
+    ``log det`` is ``c = g_logabs + i Im(g_sign conj(sign))`` (``g_logabs`` for
+    real ``A``) and the gradient is ``c A^-H``.  ``A^-1`` is
+    ``torch.linalg.inv_ex`` of the saved input, which differentiates again and
+    skips ``torch.linalg.inv``'s error check (a host read).
+
+    The backward does not reuse the forward's LU even for a first derivative:
+    grad mode does not tell whether it will be differentiated (the loss takes
+    the full-Hessian local energy under ``torch.no_grad``, which ``torch.func``
+    overrides).  ``torch.linalg.slogdet`` is not used: in torch 2.13.0 (CPU)
+    its rules give wrong tangents under ``vmap`` of ``jacfwd``
+    (``tests/test_torch_slogdet.py::test_vmap_over_a_batch``).
+    ``generate_vmap_rule`` fails inside ``jacfwd``; every operation here takes
+    leading batch axes, so the batching rule moves the batch axis to the front.
     """
 
     @staticmethod
-    def forward(ctx, a):
-        lu, pivots, _ = torch.linalg.lu_factor_ex(a)
-        sign, logabs = _slogdet_from_lu(lu, pivots)
-        ctx.save_for_backward(lu, pivots, sign)
-        return sign, logabs
+    def forward(a):
+        return torch.linalg.slogdet(a)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        (a,) = inputs
+        sign, _ = output
+        ctx.save_for_backward(a, sign)
+        ctx.save_for_forward(a, sign)
 
     @staticmethod
     def backward(ctx, g_sign, g_logabs):
-        lu, pivots, sign = ctx.saved_tensors
-        eye = torch.eye(lu.shape[-1], dtype=lu.dtype, device=lu.device).expand(lu.shape)
-        inv_h = torch.linalg.lu_solve(lu, pivots, eye, adjoint=True)  # A^-H
+        a, sign = ctx.saved_tensors
         c = g_logabs
-        if lu.is_complex():
+        if a.is_complex():
             c = torch.complex(g_logabs, (g_sign * sign.conj()).imag)
-        return c[..., None, None] * inv_h
+        return c[..., None, None] * torch.linalg.inv_ex(a).inverse.mH
+
+    @staticmethod
+    def jvp(ctx, a_dot):
+        a, sign = ctx.saved_tensors
+        trace = (torch.linalg.inv_ex(a).inverse * a_dot.mT).sum(dim=(-2, -1))
+        if a.is_complex():
+            return 1j * trace.imag * sign, trace.real
+        return torch.zeros_like(sign), trace
+
+    @staticmethod
+    def vmap(info, in_dims, a):
+        del info
+        return _Slogdet.apply(a.movedim(in_dims[0], 0)), (0, 0)
 
 
 def slogdet(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -76,8 +76,11 @@ def make_optimizer_step(cfg: Config, model, fixed_states=None):
         loss_grad_fn = make_loss_fn(model, cfg.system, LossMode.ENERGY_GRAD, fixed_states)
         return make_adam_training_step(cfg.optim.adam, loss_grad_fn, model)
     if cfg.optim.optimizer == OptimizerName.kfac:
-        # The Psiformer (the only network ported): one shared forward serves
-        # the gradient and the curvature capture.
+        if not any(True for _ in model.parameters()):
+            # The JAX package fails here too (its curvature capture finds no layer).
+            raise ValueError(
+                f"KFAC cannot train the {cfg.network.type} network: it has no parameters")
+        # One shared forward serves the gradient and the curvature capture.
         capture_fn = make_loss_and_capture_fn(model, cfg.system, fixed_states)
         return make_kfac_training_step(cfg.optim.kfac, capture_fn, model, sum(cfg.system.nspins))
     raise ValueError(f"Optimizer {cfg.optim.optimizer} is not implemented!")

@@ -27,8 +27,10 @@ def make_adam_training_step(optim_cfg: OptimizerAdam, loss_grad_fn, model):
         return {"params": nest({k: torch.zeros_like(p) for k, p in params.items()})}
 
     def init(model, data) -> AdamState:
-        del model, data
-        device = next(iter(params.values())).device
+        del model
+        # A network without parameters (the Laughlin state) keeps its count
+        # beside the walkers.
+        device = next(iter(params.values())).device if params else data.device
         return AdamState(torch.zeros((), dtype=torch.int32, device=device), zeros(), zeros())
 
     def step(state: CheckpointState, penalties: dict | None = None):

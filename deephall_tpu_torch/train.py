@@ -37,7 +37,6 @@ import yaml
 from deephall_tpu_torch import mcmc, optimizers
 from deephall_tpu_torch.config import (
     Config,
-    NetworkType,
     OptimizerName,
     dotlist_to_dict,
     merge_dicts,
@@ -76,13 +75,13 @@ def load_fixed_states(cfg: Config, device) -> list | None:
     """``system.orthogonal_states`` as callables ``data -> log phi_j`` on ``device``.
 
     Each checkpoint (with its ``config.yml`` sidecar) is a converged lower
-    state of an excited-state run: a float32 module with frozen parameters,
-    evaluated without gradients.
+    state of an excited-state run: a float32 module with frozen parameters
+    (the Psiformer) or none (the Laughlin / CF state), evaluated without
+    gradients.
 
     Raises:
         ValueError: if a fixed state was trained on another system (flux,
             electron count, radius).
-        NotImplementedError: if its network is not the Psiformer.
     """
     if not cfg.system.orthogonal_states:
         return None
@@ -99,11 +98,6 @@ def load_fixed_states(cfg: Config, device) -> list | None:
                 f"orthogonal state {path} was trained on a different system "
                 f"(flux={fcfg.system.flux}, nspins={fcfg.system.nspins}, "
                 f"radius={fcfg.system.radius})"
-            )
-        if fcfg.network.type != NetworkType.psiformer:
-            raise NotImplementedError(
-                f"orthogonal state {path}: the {fcfg.network.type} network is not ported "
-                "yet: ROADMAP queue 1, item 7 (analytic wavefunctions)."
             )
         _, model, _, _, _ = runner.load_run(path)
         fixed.append(_frozen(model.to(device).requires_grad_(False)))

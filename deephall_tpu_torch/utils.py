@@ -34,9 +34,13 @@ def constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.T
     """The tensor of ``values`` on ``device``, made once and shared (read only).
 
     Each entry is written by a fill on the device: a tensor copied from the
-    host would make the host wait for the card's queue.
+    host would make the host wait for the card's queue.  It is made outside
+    any ``torch.func`` transform, even when the first call comes from inside
+    one (the full-Hessian local energy): a tensor made in a transform is
+    wrapped for it and may not be used after it.
     """
-    out = torch.empty(len(values), dtype=dtype, device=device)
-    for i, value in enumerate(values):
-        out[i].fill_(value)
+    with torch._C._DisableFuncTorch():
+        out = torch.empty(len(values), dtype=dtype, device=device)
+        for i, value in enumerate(values):
+            out[i].fill_(value)
     return out

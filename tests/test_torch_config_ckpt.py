@@ -140,6 +140,18 @@ def test_restore_and_step_import_no_jax():
         from deephall_tpu_torch.networks import make_network
         from deephall_tpu_torch.optimizers import make_optimizer_step
         from deephall_tpu_torch.weights import load_flax
+        from deephall_tpu_torch.hamiltonian import local_energy
+        from deephall_tpu_torch.networks.edstate import make_ed_network
+        from deephall_tpu_torch.networks.laughlin import Laughlin
+        from deephall_tpu_torch.observables import ed
+
+        small = Config.from_dict({"system": {"nspins": [3, 0], "flux": 6}}).system
+        ed_state, result = make_ed_network(small)
+        assert isinstance(result, ed.EDResult)
+        walkers = torch.rand(2, 3, 2) + 0.2
+        for network in (Laughlin((3, 0), 6), ed_state):
+            el, _ = torch.func.vmap(local_energy(network, small))(walkers)
+            assert torch.isfinite(el).all()
 
         cfg = Config.from_dict(yaml.safe_load(open("artifacts/prod_r4/config.yml")))
         cfg.optim.optimizer = "none"

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import csv
+import math
 import os
 import subprocess
 import sys
@@ -20,9 +21,10 @@ from deephall_tpu import loss as jax_loss
 from deephall_tpu.log import LogManager as JaxLogManager
 from deephall_tpu.networks import make_network as jax_make_network
 from deephall_tpu_torch import config, loss, train
+from deephall_tpu_torch.log import LogManager
 from deephall_tpu_torch.networks import make_network
-from deephall_tpu_torch.optimizers import make_optimizer_step
-from deephall_tpu_torch.weights import load_flax
+from deephall_tpu_torch.types import CheckpointState
+from deephall_tpu_torch.weights import load_flax, params_to_flax
 
 torch.set_num_threads(2)
 
@@ -146,19 +148,24 @@ def test_cuda_requested_without_a_card_raises(tmp_path):
 
 @pytest.mark.parametrize("optimizer", ["kfac", "adam"])
 def test_training_optimizers_are_not_ported_yet(optimizer, tmp_path):
-    # Both training optimizers build; what of training is not ported yet, a
-    # fixed lower state of an analytic network (system.orthogonal_states),
-    # raises and points to ROADMAP.
-    cfg = config.Config.from_dict({"optim": {"optimizer": optimizer}})
-    model = make_network(cfg.system, cfg.network)
-    init, step = make_optimizer_step(cfg, model)
-    assert callable(init) and callable(step)
-    fixed = tmp_path / "laughlin"
-    fixed.mkdir()
-    (fixed / "config.yml").write_text(config.to_yaml(config.Config.from_dict({"network": {"type": "laughlin"}})))
+    # Both training optimizers are ported, and so is what they lacked: a fixed
+    # lower state of the analytic network (system.orthogonal_states), whose
+    # checkpoint has no parameters.  Two iterations of a small Psiformer
+    # against a stored Laughlin state, with the overlap statistic finite.
+    laughlin = config.Config.from_dict({
+        "system": {"nspins": [3, 0], "flux": 6}, "network": {"type": "laughlin"},
+        "log": {"save_path": str(tmp_path / "laughlin")}})
+    model = make_network(laughlin.system, laughlin.network)
+    data = torch.rand(8, 3, 2) * torch.tensor([math.pi, 2 * math.pi]) - torch.tensor([0, math.pi])
+    LogManager(laughlin).save_checkpoint(
+        0, CheckpointState(params_to_flax(model), data.numpy(), None, 0.1))
     cfg = config.Config.from_dict({
-        "optim": {"optimizer": optimizer}, "log": {"save_path": str(tmp_path / "run")},
-        "system": {"orthogonal_states": [str(fixed / "ckpt_000000.npz")]},
+        "batch_size": 16, "optim": {"optimizer": optimizer, "iterations": 2},
+        "mcmc": {"burn_in": 2}, "log": {"save_path": str(tmp_path / "run")},
+        "system": {"nspins": [3, 0], "flux": 6,
+                   "orthogonal_states": [str(tmp_path / "laughlin" / "ckpt_000000.npz")]},
+        "network": {"psiformer": {"num_layers": 1, "num_heads": 1, "heads_dim": 4}},
     })
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.train(cfg, device="cpu")
+    history = train.train(cfg, device="cpu")
+    assert len(history) == 2
+    assert all(np.isfinite(row["overlap"]) and np.isfinite(row["energy"].real) for row in history)

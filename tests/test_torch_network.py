@@ -90,6 +90,16 @@ def test_bf16_tower_matches():
 
 
 def test_unported_networks_raise():
-    cfg = config.Config.from_dict({"network": {"type": "laughlin"}})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_network(cfg.system, cfg.network)
+    # Every network of the config is ported now: the Laughlin dispatch (with
+    # the excitation's Lz from system.lz_center) gives the JAX package's log
+    # psi, within 1e-5 of the largest |Re| and its phase mod 2 pi.
+    raw = {"system": {"nspins": [4, 0], "flux": 10, "lz_center": 1.0},
+           "network": {"type": "laughlin"}}
+    jmodel, model = models(raw)
+    data = random_walkers(7, 5, 4)
+    want = np.asarray(jax.jit(jax.vmap(lambda x: jmodel.apply({}, x)))(jnp.asarray(data)))
+    with torch.no_grad():
+        got = model(torch.from_numpy(data)).numpy()
+    assert model.excitation_lz == 1.0 and not list(model.parameters())
+    assert np.abs(got.real - want.real).max() < 1e-5 * np.abs(want.real).max()
+    np.testing.assert_allclose(np.exp(1j * (got.imag - want.imag)), 1.0, atol=1e-5)
