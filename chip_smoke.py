@@ -69,7 +69,21 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
 10. ed_state: the exact ED ground state of N=6, 2Q=15 (Lz = 0, 338
    determinants) in complex128 on the same walkers through the full-Hessian
    path: the kinetic energy within 1e-6 of 3 and L^2 within 1e-6 of 0 at
-   every walker, the ED energy within 1e-6 of 6.87163491; no kernel launches.
+   every walker, the ED energy within 1e-6 of 6.87163491; no kernel launches;
+11. observables: the observables CLI (``observables.runner.cli ... --out``,
+   local paths) on the stored states at batch 3360 with the float32 chain:
+   ``ed_overlap`` of ``prod_r4`` (100 steps) within 0.003 of 0.99487 and of
+   sector 6 against its 2Lz=12 block (``--ed-state 0``, 60 steps) within 0.01
+   of 0.9599 (``BASELINE.md``), both at most 1; ``structure_factor`` of
+   ``prod_r4`` (40 steps): S_0 = 6, every S_L within 0.03 of the stored
+   measurement (``artifacts/prod_r4/structure_factor_n6q15.npz``), its maximum
+   over L >= 1 at L = 4; ``one_rdm`` (50 steps): 16 x 16, the trace within
+   0.05 of 6 and every occupation within 0.03 of 6/16; ``density`` and
+   ``pair_corr`` (10 steps each): the density's mass 10 x 3360 x 6, the
+   correlation hole; ``overlap`` of phase ``laughlin``'s checkpoint (5 steps)
+   within 1e-4 of 1.  No kernel launches, and no synchronising call inside
+   the steps (sweep, estimator, width); each run's median ms a step (CUDA
+   events), its seconds and its peak memory are printed.
 
 The line before the last is the kernel table; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -126,6 +140,22 @@ LAUGHLIN_L2, LAUGHLIN_KINETIC, KINETIC_TOL = 0.005, 3.0, 1e-3
 # chunks of walkers.
 HESSIAN_WALKERS, ED_CHUNK = 336, 48
 ED_ENERGY, ED_TOL = 6.87163491, 1e-6
+# Phase observables: (name, checkpoint, estimator, steps, extra CLI flags).
+SECTOR_CKPT = SECTOR / "ckpt_027499.npz"
+OBSERVABLE_RUNS = (
+    ("ed_overlap", GROUND_STATE, "ed_overlap", 100, ()),
+    ("ed_overlap_sector_6", SECTOR_CKPT, "ed_overlap", 60, ("--ed-state", "0")),
+    ("structure_factor", GROUND_STATE, "structure_factor", 40, ()),
+    ("one_rdm", GROUND_STATE, "one_rdm", 50, ()),
+    ("density", GROUND_STATE, "density", 10, ()),
+    ("pair_corr", GROUND_STATE, "pair_corr", 10, ()),
+    ("overlap_laughlin", None, "overlap", 5, ()),  # phase laughlin's checkpoint
+)
+# BASELINE.md: ed_overlap 0.99487 (prod_r4, 100 steps) and 0.9599 (sector 6,
+# 60 steps); the 1-RDM's occupations 0.365-0.381, around N / (2Q + 1) = 6/16.
+ED_OVERLAP, ED_OVERLAP_TOL = 0.99487, 0.003
+SECTOR_ED_OVERLAP, SECTOR_ED_OVERLAP_TOL = 0.9599, 0.01
+STRUCTURE_FACTOR_TOL, TRACE_TOL, OCCUPATION_TOL = 0.03, 0.05, 0.03
 # The jet LayerNorm takes under half a millisecond, and the host's work before
 # its launch an eighth to a sixth of that (measured on an H100 host): it is
 # timed over this many calls in a row.
@@ -1164,6 +1194,142 @@ def phase_ed_state(device) -> None:
     no_launches("ed_state", counts)
 
 
+class StepWatch(SyncCount):
+    """Synchronising calls inside the steps of ``evaluate_observable`` (its
+    sweep, its estimator and its width update, by source line) and a CUDA
+    event after each step's estimator; the set-up and the digest are outside."""
+
+    def __enter__(self):
+        from deephall_tpu_torch import mcmc
+        from deephall_tpu_torch.observables import estimators
+
+        self.mcmc, self.estimators = mcmc, estimators
+        self.saved = (mcmc.make_mcmc_step, mcmc.adapt_width, dict(estimators.ESTIMATORS))
+        self.events: list = []
+        make_step, adapt_width, factories = self.saved
+
+        def make_mcmc_step(*args, **kwargs):
+            step = make_step(*args, **kwargs)
+            return lambda *step_args: self.watch(step, *step_args)
+
+        mcmc.make_mcmc_step = make_mcmc_step
+        mcmc.adapt_width = lambda *args: self.watch(adapt_width, *args)
+        for name, factory in factories.items():
+            estimators.ESTIMATORS[name] = self.timed(factory)
+        return self
+
+    def timed(self, factory):
+        def make(*args, **kwargs):
+            est = factory(*args, **kwargs)
+
+            def evaluate(*eval_args):
+                state = self.watch(est.evaluate, *eval_args)
+                event = torch.cuda.Event(enable_timing=True)
+                event.record()
+                self.events.append(event)
+                return state
+
+            return est._replace(evaluate=evaluate)
+
+        return make
+
+    def __exit__(self, *exc):
+        self.mcmc.make_mcmc_step, self.mcmc.adapt_width, factories = self.saved
+        self.estimators.ESTIMATORS.update(factories)
+
+    def step_ms(self) -> list[float]:
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in zip(self.events, self.events[1:])]
+
+
+def plain(value):
+    """An array as JSON: a list, or ``{"re": ..., "im": ...}`` when complex."""
+    a = np.asarray(value)
+    if np.iscomplexobj(a):
+        return {"re": a.real.tolist(), "im": a.imag.tolist()}
+    return a.tolist()
+
+
+def observable_gate(name: str, out: dict, steps: int) -> list[str]:
+    """The physics gates of one run of phase ``observables``; returns the failures."""
+    bad = []
+    if name in ("ed_overlap", "ed_overlap_sector_6", "overlap_laughlin"):
+        want, tol = {"ed_overlap": (ED_OVERLAP, ED_OVERLAP_TOL),
+                     "ed_overlap_sector_6": (SECTOR_ED_OVERLAP, SECTOR_ED_OVERLAP_TOL),
+                     "overlap_laughlin": (1.0, 1e-4)}[name]
+        overlap = float(out["overlap"])
+        if not (abs(overlap - want) <= tol and overlap <= 1 + 1e-6):
+            bad.append(f"overlap {overlap} not within {tol} of {want} or above 1")
+    elif name == "structure_factor":
+        s_l = np.asarray(out["structure_factor"], dtype=np.float64)
+        with np.load(REPO / "artifacts/prod_r4/structure_factor_n6q15.npz") as f:
+            stored = np.asarray(f["vmc_s_l"], dtype=np.float64)
+        if not abs(s_l[0] - 6.0) <= 1e-6:
+            bad.append(f"S_0 = {s_l[0]}")
+        if not np.all(np.abs(s_l[1:] - stored[1:]) <= STRUCTURE_FACTOR_TOL):
+            bad.append(f"S_L {s_l.tolist()} not within {STRUCTURE_FACTOR_TOL} of {stored.tolist()}")
+        if int(np.argmax(s_l[1:])) + 1 != 4:
+            bad.append(f"S_L peaks at L = {int(np.argmax(s_l[1:])) + 1}")
+    elif name == "one_rdm":
+        rdm, trace = np.asarray(out["one_rdm"]), complex(out["trace"])
+        if rdm.shape != (16, 16) or not np.isfinite(rdm).all():
+            bad.append(f"1-RDM shape {rdm.shape} or not finite")
+        if not (abs(trace.real - 6.0) < TRACE_TOL and abs(trace.imag) < TRACE_TOL):
+            bad.append(f"trace {trace}")
+        if not np.all(np.abs(np.diagonal(rdm) - 6 / 16) <= OCCUPATION_TOL):
+            bad.append(f"occupations {np.diagonal(rdm).tolist()}")
+    elif name == "density":
+        if float(np.sum(out["map"])) != steps * BATCH * 6:
+            bad.append(f"density mass {float(np.sum(out['map']))}")
+    elif name == "pair_corr":
+        g = np.asarray(out["pair_corr"])
+        if not (np.isfinite(g).all() and g[:5].sum() < 0.1 * g[100:105].sum()):
+            bad.append(f"no correlation hole: {g[:5].sum()} vs {g[100:105].sum()}")
+    return bad
+
+
+def phase_observables(workdir: Path, laughlin_ckpt: Path, smi: str) -> None:
+    """The observables CLI on the stored states at full width (no kernels)."""
+    from deephall_tpu_torch.observables import runner
+
+    report, failures = {}, []
+    for name, ckpt, estimator, steps, flags in OBSERVABLE_RUNS:
+        out_file = workdir / f"observable_{name}.npz"
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        with StepWatch() as watch:
+            runner.cli([str(ckpt or laughlin_ckpt), "--estimator", estimator,
+                        "--steps", str(steps), "--out", str(out_file), *flags])
+        seconds = time.perf_counter() - start
+        step_ms = watch.step_ms()
+        with np.load(out_file) as f:
+            out = {k: f[k] for k in f.files}
+        counts = launch_counts()
+        bad = observable_gate(name, out, steps)
+        if any(counts.values()):
+            bad.append(f"kernels launched: {counts}")
+        syncs = watch.report()
+        if syncs["syncs"]:
+            bad.append(f"synchronising calls inside the steps: {syncs['sync_sources']}")
+        if len(watch.events) != steps:
+            bad.append(f"{len(watch.events)} estimator steps, not {steps}")
+        failures.extend(f"{name}: {b}" for b in bad)
+        values = {k: plain(out[k]) for k in ("overlap", "structure_factor", "trace", "diagonal")
+                  if k in out}
+        report[name] = dict(
+            checkpoint=str(ckpt or laughlin_ckpt), estimator=estimator, steps=steps,
+            step_ms_median=statistics.median(step_ms) if step_ms else None,
+            seconds=seconds, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+            syncs_in_steps=syncs["syncs"], sync_sources=syncs["sync_sources"],
+            launches=sum(counts.values()), ok=not bad, **values)
+        emit(phase="observable", name=name, nvidia_smi=smi, **report[name])
+    emit(phase="observables", nvidia_smi=smi, runs=len(report),
+         seconds=sum(r["seconds"] for r in report.values()), failures=failures)
+    if failures:
+        raise AssertionError(f"observables: {failures}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1210,6 +1376,8 @@ def main() -> int:
         hessian_counts = phase_hessian(device)
         phase_ed_state(device)
         emit(phase="slice_6_phases", seconds=time.perf_counter() - start)
+        phase_observables(Path(workdir),
+                          Path(workdir) / "laughlin" / f"ckpt_{LAUGHLIN_ITERATIONS - 1:06d}.npz", smi)
 
     sources = {
         "jet_layernorm": ("deephall_tpu_torch/csrc/jet_layernorm.cu", "deephall_tpu/ops/jet_layernorm.py:58"),

@@ -22,7 +22,9 @@ class outside NumPy and the builtins.  ``opt_state`` goes both ways:
   class is refused, and a refused or unreadable state is restored as ``None``
   with a warning, so the optimizer is reinitialised.
 
-Paths are local.
+Paths (``log.save_path``, ``log.restore_path``, a checkpoint given to
+:meth:`LogManager.restore_checkpoint`) are local paths or ``scheme://`` fsspec
+URLs, through :class:`AnyPath`; ``fsspec`` is imported only for a URL.
 """
 
 from __future__ import annotations
@@ -45,6 +47,74 @@ from deephall_tpu_torch.config import Config, to_yaml
 from deephall_tpu_torch.types import AdamState, CheckpointState, KfacState
 
 logger = logging.getLogger("deephall")
+
+
+class AnyPath:
+    """A local path or an fsspec URL (``memory://``, ``gs://``, ...), with the
+    few operations the run directory needs (port of ``deephall_tpu/log.py:AnyPath``)."""
+
+    def __init__(self, path: str | Path | AnyPath):
+        self._raw = str(path)
+        self._is_url = "://" in self._raw
+
+    def __str__(self) -> str:
+        return self._raw
+
+    def __truediv__(self, other: str) -> AnyPath:
+        sep = "" if self._raw.endswith("/") else "/"
+        return AnyPath(f"{self._raw}{sep}{other}")
+
+    def _fs(self):
+        import fsspec
+
+        return fsspec.core.url_to_fs(self._raw)
+
+    @property
+    def parent(self) -> AnyPath:
+        if self._is_url:
+            return AnyPath(self._raw.rstrip("/").rsplit("/", 1)[0])
+        return AnyPath(Path(self._raw).parent)
+
+    def exists(self) -> bool:
+        if self._is_url:
+            fs, p = self._fs()
+            return fs.exists(p)
+        return Path(self._raw).exists()
+
+    def is_file(self) -> bool:
+        if self._is_url:
+            fs, p = self._fs()
+            return fs.isfile(p)
+        return Path(self._raw).is_file()
+
+    def mkdir(self, parents: bool = True, exist_ok: bool = True) -> None:
+        if self._is_url:
+            fs, p = self._fs()
+            fs.makedirs(p, exist_ok=exist_ok)
+        else:
+            Path(self._raw).mkdir(parents=parents, exist_ok=exist_ok)
+
+    def glob(self, pattern: str) -> list[AnyPath]:
+        if self._is_url:
+            fs, p = self._fs()
+            proto = self._raw.split("://", 1)[0]
+            return [AnyPath(f"{proto}://{m}") for m in fs.glob(f"{p}/{pattern}")]
+        return [AnyPath(p) for p in Path(self._raw).glob(pattern)]
+
+    def open(self, mode: str = "r", **kwargs):
+        if self._is_url:
+            import fsspec
+
+            return fsspec.open(self._raw, mode, **kwargs).open()
+        return open(self._raw, mode, **kwargs)
+
+    def unlink(self, missing_ok: bool = True) -> None:
+        if self._is_url:
+            fs, p = self._fs()
+            if fs.exists(p):
+                fs.rm(p)
+        else:
+            Path(self._raw).unlink(missing_ok=missing_ok)
 
 
 def init_logging() -> None:
@@ -142,16 +212,24 @@ def decode_opt_state(obj):
 class StatsWriter:
     """CSV stats file with header-on-create, stderr mirroring and force-flush."""
 
-    def __init__(self, stats_path: Path):
-        self.stats_path = Path(stats_path)
+    def __init__(self, stats_path: str | Path | AnyPath):
+        self.stats_path = AnyPath(stats_path)
         self.stats_file = None
         self.hidden_fields: set[str] = set()
 
     def __enter__(self):
         exists = self.stats_path.exists()
-        self.should_write_head = not exists or self.stats_path.stat().st_size == 0
+        self.should_write_head = not exists or self._size() == 0
         self.stats_file = self.stats_path.open("a" if exists else "w", buffering=1)
         return self
+
+    def _size(self) -> int:
+        try:
+            with self.stats_path.open("rb") as f:
+                f.seek(0, 2)
+                return f.tell()
+        except OSError:
+            return 0
 
     def hide(self, *args):
         """Hide these fields on stderr while still writing them to the CSV."""
@@ -168,7 +246,9 @@ class StatsWriter:
         )
 
     def force_flush(self):
-        self.stats_file.flush()
+        """Close and reopen the file (a reliable flush on remote filesystems)."""
+        self.stats_file.close()
+        self.stats_file = self.stats_path.open("a", buffering=1)
 
     def __exit__(self, exc_type, exc_value, traceback):
         self.stats_file.close()
@@ -182,15 +262,15 @@ class LogManager:
     def __init__(self, cfg: Config):
         if cfg.log.save_path is None:
             timestamp = datetime.datetime.now().strftime("%Y%m%d_%H:%M:%S")
-            self.save_path = Path(
+            self.save_path = AnyPath(
                 f"DeepHall_n{sum(cfg.system.nspins)}l{cfg.system.flux}_{timestamp}"
             )
         else:
-            self.save_path = Path(cfg.log.save_path)
+            self.save_path = AnyPath(cfg.log.save_path)
         if cfg.log.restore_path is None:
             self.restore_path = self.save_path
         else:
-            self.restore_path = Path(cfg.log.restore_path)
+            self.restore_path = AnyPath(cfg.log.restore_path)
             if not self.restore_path.exists():
                 logger.warning("Restore path %s does not exist!", self.restore_path)
         self.save_path.mkdir(parents=True, exist_ok=True)
@@ -203,9 +283,11 @@ class LogManager:
         current.extend(to_yaml(cfg).splitlines(keepends=True))
         original = []
         if restore_config_path.exists():
-            original = restore_config_path.read_text().splitlines(keepends=True)
+            with restore_config_path.open() as f:
+                original = f.readlines()
         sys.stderr.writelines(difflib.ndiff(original, current))
-        (self.save_path / "config.yml").write_text("".join(current))
+        with (self.save_path / "config.yml").open("w") as f:
+            f.writelines(current)
 
     def save_checkpoint(self, step: int, state: CheckpointState, adapt: dict | None = None):
         """Save ``ckpt_{step:06d}.npz`` in the JAX package's format.
@@ -244,15 +326,16 @@ class LogManager:
         return None
 
     @staticmethod
-    def restore_checkpoint(ckpt: str | Path) -> tuple[int, CheckpointState, dict]:
+    def restore_checkpoint(ckpt: str | Path | AnyPath) -> tuple[int, CheckpointState, dict]:
         """Restore one checkpoint file: ``(next_step, state, adapt)``.
 
         ``state.opt_state`` is the port's optimizer state with NumPy leaves, or
         ``None`` when it cannot be read (see the module docstring).  ``adapt``
         holds ``pmoves`` and ``t`` when present.
         """
-        ckpt_path = Path(ckpt)
-        blob = ckpt_path.read_bytes()
+        ckpt_path = AnyPath(ckpt)
+        with ckpt_path.open("rb") as f:
+            blob = f.read()
         with zipfile.ZipFile(io.BytesIO(blob)) as zf:
             params = _read_object(zf, "params")
             try:

@@ -64,15 +64,23 @@ def make_ed_logpsi(result: ed.EDResult, two_q: int, state: int = 0):
     )
     constants: dict = {}
 
+    def to_device(array: np.ndarray, like: torch.Tensor, dtype=None) -> torch.Tensor:
+        # From pinned memory without blocking: a copy from pageable memory
+        # would make the host wait for the card's queue.
+        host = torch.as_tensor(np.asarray(array), dtype=dtype)
+        if like.device.type == "cuda":
+            host = host.pin_memory()
+        return host.to(like.device, non_blocking=True)
+
     def on(like: torch.Tensor):
         key = (like.dtype, like.device)
         if key not in constants:
             # Made outside any torch.func transform, as utils.constant does.
             with torch._C._DisableFuncTorch():
                 constants[key] = (
-                    torch.as_tensor(basis, device=like.device),
-                    torch.as_tensor(np.asarray(amplitudes), dtype=like.dtype, device=like.device),
-                    torch.as_tensor(np.exp(log_c), dtype=like.dtype, device=like.device),
+                    to_device(basis, like),
+                    to_device(amplitudes, like, like.dtype),
+                    to_device(np.exp(log_c), like, like.dtype),
                 )
         return constants[key]
 
