@@ -83,7 +83,29 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
    correlation hole; ``overlap`` of phase ``laughlin``'s checkpoint (5 steps)
    within 1e-4 of 1.  No kernel launches, and no synchronising call inside
    the steps (sweep, estimator, width); each run's median ms a step (CUDA
-   events), its seconds and its peak memory are printed.
+   events), its seconds and its peak memory are printed;
+12. distributed: walker data parallelism (``deephall_tpu_torch/parallel``).
+   ``nccl_1``: phase ``train``'s 10 KFAC iterations through the CLI in a
+   one-rank NCCL group (``WORLD_SIZE=1``: every collective a real call): the
+   energies equal phase ``train``'s to 1e-6 relative, the same launches, at
+   most one synchronising call per block; its median iteration time beside
+   phase ``train``'s, the collectives an iteration calls, by kind, and the
+   host's and the card's time for one call of each at the sizes a training
+   step uses (the median of 200 calls in a row).  ``gloo_2``: the same run on two ranks on ``cuda:0``
+   through gloo, 1680 walkers each (child processes of this script,
+   ``--rank-child``): phase ``train``'s physics gate, a checkpoint of
+   (3360, 6, 2), equal parameter checksums on both ranks, every energy within
+   3 standard errors of phase ``train``'s and the first equal to it to 1e-6
+   relative, every launch on each rank on the tensor-core, tiled or streamed
+   kernel; after its run each rank holds every kernel against its plain
+   version (1e-5 relative per field, as phase ``kernels``) on the inputs that
+   the local energy of its 1680 walkers of ``prod_r4`` gives it, and that
+   local energy through the kernels against the plain path (1e-4 of the RMS,
+   as phase ``end_to_end``); then its checkpoint resumes on one process for 2
+   iterations.  ``runner_2``: ``ed_overlap`` of ``prod_r4`` over
+   100 steps on two gloo ranks within 0.003 of 0.99487, saved by rank 0 alone.
+   With two or more cards, ``gloo_2``'s check again through NCCL, one card a
+   rank (``nccl_2``); with one card it is reported as not run.
 
 The line before the last is the kernel table; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -92,9 +114,12 @@ The line before the last is the kernel table; the last line is
 from __future__ import annotations
 
 import copy
+import hashlib
 import json
 import logging
 import math
+import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -156,6 +181,10 @@ OBSERVABLE_RUNS = (
 ED_OVERLAP, ED_OVERLAP_TOL = 0.99487, 0.003
 SECTOR_ED_OVERLAP, SECTOR_ED_OVERLAP_TOL = 0.9599, 0.01
 STRUCTURE_FACTOR_TOL, TRACE_TOL, OCCUPATION_TOL = 0.03, 0.05, 0.03
+# Phase distributed: nccl_1 against phase train per iteration (relative), gloo_2
+# against it in standard errors, the iterations of the resumed 2-rank
+# checkpoint, and each child process's time limit (s).
+DIST_ENERGY_REL, DIST_SEM, DIST_RESUME, CHILD_TIMEOUT = 1e-6, 3.0, 2, 600
 # The jet LayerNorm takes under half a millisecond, and the host's work before
 # its launch an eighth to a sixth of that (measured on an H100 host): it is
 # timed over this many calls in a row.
@@ -580,7 +609,17 @@ class WarningLog(logging.Filter):
         return True
 
 
-def train_cli(workdir: Path, optimizer: str, iterations: int) -> tuple[list, list]:
+def prod_r4_argv(workdir: Path, optimizer: str, iterations: int) -> list[str]:
+    return [
+        "--yml", str(REPO / "artifacts/prod_r4/config.yml"),
+        f"optim.optimizer={optimizer}",
+        f"log.restore_path={REPO / 'artifacts/prod_r4/ckpt_019999.npz'}",
+        f"log.save_path={workdir}",
+        f"optim.iterations={RESUME_STEP + iterations}",
+    ]
+
+
+def train_cli(workdir: Path, optimizer: str, iterations: int, *extra: str) -> tuple[list, list]:
     """The training CLI resuming ``prod_r4``; returns its history and its warnings."""
     from deephall_tpu_torch import train
 
@@ -588,13 +627,7 @@ def train_cli(workdir: Path, optimizer: str, iterations: int) -> tuple[list, lis
     logger = logging.getLogger("deephall")
     logger.addFilter(log)
     try:
-        history = train.cli([
-            "--yml", str(REPO / "artifacts/prod_r4/config.yml"),
-            f"optim.optimizer={optimizer}",
-            f"log.restore_path={REPO / 'artifacts/prod_r4/ckpt_019999.npz'}",
-            f"log.save_path={workdir}",
-            f"optim.iterations={RESUME_STEP + iterations}",
-        ])
+        history = train.cli([*prod_r4_argv(workdir, optimizer, iterations), *extra])
     finally:
         logger.removeFilter(log)
     torch.cuda.synchronize()
@@ -830,7 +863,7 @@ def phase_train(workdir: Path, device) -> dict:
     if (len(adam_history) != ADAM_ITERATIONS or not np.isfinite(adam_energies).all()
             or dropped not in adam_warnings or result["adam"]["count"] != ADAM_ITERATIONS):
         raise AssertionError(f"train: Adam {result['adam']}")
-    return counts
+    return counts, history
 
 
 def sector_cli(save: Path, *dotlist: str) -> list:
@@ -900,8 +933,8 @@ def launches_per_local_energy(layers: int = 2) -> dict:
 
 
 class SyncCount:
-    """Synchronising calls inside the iteration blocks and their statistics' host
-    reads, by source line (``torch.cuda.set_sync_debug_mode("warn")``; the
+    """Synchronising calls inside the iteration blocks, their save flags and their
+    statistics' host reads, by source line (``torch.cuda.set_sync_debug_mode("warn")``; the
     checkpoint saves and the set-up before the first block are not counted)."""
 
     def __init__(self):
@@ -913,6 +946,7 @@ class SyncCount:
 
         self.train = train
         self.make_block, self.host_rows = train.make_iteration_block, train.host_rows
+        self.save_flags = train.save_flags
 
         def make_block(*args):
             block = self.make_block(*args)
@@ -925,6 +959,7 @@ class SyncCount:
 
         train.make_iteration_block = make_block
         train.host_rows = lambda *args: self.watch(self.host_rows, *args)
+        train.save_flags = lambda *args: self.watch(self.save_flags, *args)
         return self
 
     def watch(self, fn, *args):
@@ -940,6 +975,7 @@ class SyncCount:
 
     def __exit__(self, *exc):
         self.train.make_iteration_block, self.train.host_rows = self.make_block, self.host_rows
+        self.train.save_flags = self.save_flags
 
     def report(self) -> dict:
         return dict(blocks=self.blocks, syncs=len(self.sources),
@@ -1330,7 +1366,385 @@ def phase_observables(workdir: Path, laughlin_ckpt: Path, smi: str) -> None:
         raise AssertionError(f"observables: {failures}")
 
 
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def copied(v):
+    """``v`` with every tensor in it cloned (tuples, named tuples, dicts)."""
+    if isinstance(v, torch.Tensor):
+        return v.clone()
+    if isinstance(v, dict):
+        return {k: copied(x) for k, x in v.items()}
+    if isinstance(v, tuple):
+        items = [copied(x) for x in v]
+        return type(v)(*items) if hasattr(v, "_fields") else tuple(items)
+    return v
+
+
+def shard_kernels(device, rank: int, ranks: int) -> dict:
+    """This rank's rows of ``prod_r4``'s walkers through the local energy, with
+    each kernel wrapper's inputs recorded; then each wrapper against its plain
+    version on every recorded input, and the local energy through the kernels
+    against the plain path.  Run after the launch counts are read."""
+    from deephall_tpu_torch.ops import jet_attention as ja
+    from deephall_tpu_torch.ops import jet_layernorm as jl
+
+    # name: (module, wrapper, its plain version, the counter of the kernel
+    # built for the production shapes)
+    wrappers = {
+        "jet_layernorm": (jl, "layernorm_jet", jl.layernorm_jet_plain, "launches_streamed"),
+        "jet_attention": (ja, "attention_jet", ja.attention_jet_plain, None),
+        "jet_gemm": (ja, "jet_gemm", lambda a, w, b, r: ja.jet_gemm_plain(a, w.w, b, r),
+                     "launches_tensor_core"),
+        "jet_softmax_values": (ja, "softmax_values", ja.softmax_values_plain, "launches_tiled"),
+    }
+    cfg, model, state = restored_model(GROUND_STATE, device)
+    model.requires_grad_(False)
+    rows = BATCH // ranks
+    data = torch.as_tensor(state.data[rank * rows:(rank + 1) * rows], device=device)
+    calls, originals = [], {name: getattr(m, attr) for name, (m, attr, _, _) in wrappers.items()}
+
+    def recorder(name, fn):
+        def record(*args, **kwargs):
+            calls.append((name, copied(args), copied(kwargs)))
+            return fn(*args, **kwargs)
+
+        record.__dict__.update(fn.__dict__)  # the counters a wrapper adds to by its name
+        return record
+
+    try:
+        for name, (module, attr, _, _) in wrappers.items():
+            setattr(module, attr, recorder(name, originals[name]))
+        agreement, bad = path_agreement(model, cfg.system, data)
+    finally:
+        for name, (module, attr, _, _) in wrappers.items():
+            setattr(module, attr, originals[name])
+    report = {name: dict(calls=0, production=0, max_abs_err=0.0, max_rel_err=0.0)
+              for name in wrappers}
+    with torch.no_grad():
+        while calls:
+            name, args, kwargs = calls.pop(0)
+            module, attr, plain_fn, counter = wrappers[name]
+            fn = getattr(module, attr)
+            before = getattr(fn, counter) if counter else 0
+            got, want = fn(*args, **kwargs), plain_fn(*args, **kwargs)
+            row = report[name]
+            row["calls"] += 1
+            row["production"] += getattr(fn, counter) - before if counter else 1
+            for a, b in zip(got, want) if isinstance(got, tuple) else ((got, want),):
+                err, rel = field_error(a, b)
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+                row["max_rel_err"] = max(row["max_rel_err"], rel)
+            del args, kwargs, got, want
+    torch.cuda.empty_cache()
+    return dict(walkers=rows, kernels=report, local_energy=agreement, local_energy_off=bad)
+
+
+def rank_child(kind: str, argv: list[str]) -> int:
+    """One rank of phase ``distributed`` (``chip_smoke.py --rank-child train|runner
+    ARGS``): the training or observables CLI with ``ARGS``, then one JSON line
+    with this rank's launch counts and, after training, its statistics, the
+    SHA-256 of its parameters' bytes and :func:`shard_kernels`."""
+    sys.path.insert(0, str(REPO))
+    from deephall_tpu_torch import train
+    from deephall_tpu_torch.observables import runner
+
+    reset_counts()
+    if kind == "runner":
+        runner.cli(argv)
+        torch.cuda.synchronize()
+        emit(rank=int(os.environ["RANK"]), launches=launch_counts())
+        return 0
+    made = []
+    make_network = train.make_network
+    train.make_network = lambda *args: made.append(make_network(*args)) or made[-1]
+    history = train.cli(argv)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    params = b"".join(p.detach().cpu().numpy().tobytes() for p in made[0].parameters())
+    rank = int(os.environ["RANK"])
+    emit(rank=rank, launches=counts,
+         shard_kernels=shard_kernels(next(made[0].parameters()).device, rank,
+                                     int(os.environ["WORLD_SIZE"])),
+         checksum=hashlib.sha256(params).hexdigest(),
+         energies=[row["energy"].real for row in history],
+         l_square=[row["angular_momentum_square"] for row in history],
+         step_norms=[row["learning_rate"] ** 2 * row["norm_coefficient"] ** 2
+                     * row["quadratic_norm"] for row in history],
+         step_times_ms=[row["step_time"] * 1e3 for row in history])
+    return 0
+
+
+def spawn_ranks(kind: str, argv: list[str], ranks: int, device: str,
+                backend: str) -> list[tuple[dict, str]]:
+    """``ranks`` child processes of this script as one torchrun-style launch;
+    returns each rank's JSON line and its standard error."""
+    port = free_port()
+    procs = []
+    for rank in range(ranks):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(ranks), LOCAL_RANK=str(rank),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(REPO / "chip_smoke.py"), "--rank-child", kind, *argv,
+             "--device", device, "--backend", backend],
+            cwd=REPO, env=env, text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+    outs = []
+    try:
+        for rank, proc in enumerate(procs):
+            out, err = proc.communicate(timeout=CHILD_TIMEOUT)
+            if proc.returncode != 0:
+                raise AssertionError(f"distributed: {kind} rank {rank} exited {proc.returncode}:"
+                                     f"\n{err[-4000:]}")
+            outs.append((json.loads(out.strip().splitlines()[-1]), err))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return outs
+
+
+def two_rank_training(name: str, workdir: Path, device: str, backend: str, train_history: list,
+                      cfg_constraint: float) -> tuple[dict, list[str]]:
+    """Phase ``train``'s 10 KFAC iterations on two ranks; returns the report and
+    the failed gates."""
+    from deephall_tpu_torch.log import LogManager
+
+    save = workdir / name
+    start = time.perf_counter()
+    outs = [out for out, _ in spawn_ranks(
+        "train", prod_r4_argv(save, "kfac", TRAIN_ITERATIONS), 2, device, backend)]
+    seconds = time.perf_counter() - start
+    _, final, _ = LogManager.restore_checkpoint(
+        save / f"ckpt_{RESUME_STEP + TRAIN_ITERATIONS - 1:06d}.npz")
+    energies = np.array(outs[0]["energies"])
+    want = np.array([row["energy"].real for row in train_history])
+    sem = np.sqrt(np.array([row["variance"] for row in train_history]) / BATCH)
+    gaps = np.abs(energies - want) / sem
+    expected = {k: TRAIN_ITERATIONS * v for k, v in launches_per_local_energy().items()}
+    report = dict(
+        device=device, backend=backend, walkers_per_rank=BATCH // 2, seconds=seconds,
+        mean_energy=float(energies.mean()), mean_l_square=float(np.mean(outs[0]["l_square"])),
+        largest_gap_sem=float(gaps.max()), energies=energies.tolist(),
+        first_energy_rel_diff=float(abs(energies[0] - want[0]) / abs(want[0])),
+        step_norm_over_constraint=max(max(o["step_norms"]) for o in outs) / cfg_constraint,
+        checksums=[o["checksum"] for o in outs], checkpoint_data=list(final.data.shape),
+        kfac_step_exit=int(final.opt_state.step),
+        step_time_median_ms=[statistics.median(o["step_times_ms"]) for o in outs],
+        launches=[o["launches"] for o in outs], expected_launches=expected,
+        shard_kernels=[o["shard_kernels"] for o in outs],
+    )
+    bad = []
+    values = [v for o in outs for v in (*o["energies"], *o["l_square"])]
+    if len(energies) != TRAIN_ITERATIONS or not np.isfinite(values).all():
+        bad.append("missing iterations or a NaN")
+    if not (abs(report["mean_energy"] - ANCHOR_ENERGY) <= ANCHOR_TOL
+            and report["mean_l_square"] < 0.2):
+        bad.append(f"energy {report['mean_energy']} or L^2 {report['mean_l_square']} off")
+    if not report["step_norm_over_constraint"] <= 1 + 1e-5:
+        bad.append("a step broke the norm constraint")
+    if report["checkpoint_data"] != [BATCH, 6, 2] or report["kfac_step_exit"] != RESUME_STEP + TRAIN_ITERATIONS:
+        bad.append(f"checkpoint data {report['checkpoint_data']}, step {report['kfac_step_exit']}")
+    if len(set(report["checksums"])) != 1:
+        bad.append("the ranks' parameters differ")
+    if not report["largest_gap_sem"] <= DIST_SEM:
+        bad.append(f"an energy lies {report['largest_gap_sem']:.2f} standard errors from phase train's")
+    if not report["first_energy_rel_diff"] <= DIST_ENERGY_REL:
+        bad.append(f"the first energy lies {report['first_energy_rel_diff']:.2e} from phase train's")
+    for rank, shard in enumerate(report["shard_kernels"]):
+        for kernel, row in shard["kernels"].items():
+            if not (row["calls"] > 0 and row["production"] == row["calls"]
+                    and row["max_rel_err"] <= KERNEL_TOL):
+                bad.append(f"rank {rank}: {kernel} at {shard['walkers']} walkers: {row}")
+        if shard["local_energy_off"]:
+            bad.append(f"rank {rank}: the local energy's {shard['local_energy_off']} differ "
+                       f"by more than {END_TO_END_TOL}")
+    if any(counts != expected for counts in report["launches"]):
+        bad.append(f"launches {report['launches']} != {expected} on each rank")
+    if outs[0]["energies"] != outs[1]["energies"]:
+        bad.append("the ranks' statistics differ")
+    return report, [f"{name}: {b}" for b in bad]
+
+
+class CollectiveCount:
+    """Counts the ``torch.distributed`` collectives called inside the block, by kind."""
+
+    KINDS = ("all_reduce", "all_gather", "all_gather_into_tensor", "broadcast")
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.dist, self.saved, self.counts = dist, {}, dict.fromkeys(self.KINDS, 0)
+        for kind in self.KINDS:
+            fn = self.saved[kind] = getattr(dist, kind)
+
+            def counted(*args, _fn=fn, _kind=kind, **kwargs):
+                self.counts[_kind] += 1
+                return _fn(*args, **kwargs)
+
+            setattr(dist, kind, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for kind, fn in self.saved.items():
+            setattr(self.dist, kind, fn)
+
+
+def collective_costs(device, calls: int = 200) -> list[dict]:
+    """In the process group joined: the host's and the card's time (µs) for one
+    call of each collective at the sizes a training step uses, each the median
+    of ``calls`` calls in a row, beside a ``torch.add`` of two numbers."""
+    from deephall_tpu_torch import parallel
+    from deephall_tpu_torch.log import LogManager
+
+    def numel(tree: dict) -> int:
+        return sum(numel(v) if isinstance(v, dict) else np.size(v) for v in tree.values())
+
+    _, state, _ = LogManager.restore_checkpoint(GROUND_STATE)
+    # A statistic's sum and count, the gradient buffer (every parameter), the
+    # KFAC moments, a gather of every walker's complex energy.
+    stat = torch.ones(2, device=device)
+    grads = torch.ones(numel(state.params), device=device)
+    moments = torch.ones(numel(state.opt_state.kron) + numel(state.opt_state.diag), device=device)
+    energies = torch.ones(BATCH, 2, device=device)
+    cases = (
+        ("all_reduce_sum statistic", stat.numel(), lambda: parallel.all_reduce_sum(stat)),
+        ("all_reduce_sum gradient", grads.numel(), lambda: parallel.all_reduce_sum(grads)),
+        ("all_reduce_mean moments", moments.numel(), lambda: parallel.all_reduce_mean(moments)),
+        ("all_gather_rows energies", energies.numel(), lambda: parallel.all_gather_rows(energies)),
+        ("torch.add statistic", stat.numel(), lambda: torch.add(stat, stat)),
+    )
+    rows = []
+    for name, floats, fn in cases:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        wall = time.perf_counter()
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        host_us = (time.perf_counter() - wall) / calls * 1e6
+        end.synchronize()
+        rows.append(dict(case=name, floats=floats, host_us=host_us,
+                         device_us=start.elapsed_time(end) / calls * 1e3))
+    return rows
+
+
+def one_rank_launch() -> dict:
+    return dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                MASTER_PORT=str(free_port()))
+
+
+def phase_distributed(workdir: Path, train_history: list, train_counts: dict, smi: str) -> None:
+    """Walker data parallelism: a one-rank NCCL group, two gloo ranks on one card,
+    the observables runner on two ranks, and NCCL across cards where there are two."""
+    import yaml
+
+    from deephall_tpu_torch import parallel, train
+    from deephall_tpu_torch.log import LogManager
+
+    constraint = yaml.safe_load((REPO / "artifacts/prod_r4/config.yml").read_text())
+    constraint = constraint["optim"]["kfac"]["norm_constraint"]
+    failures, report = [], {}
+
+    # nccl_1: a real NCCL group of one rank, in this process; then the cost of
+    # each collective in a new group of one.
+    launch = one_rank_launch()
+    os.environ.update(launch)
+    reset_counts()
+    start = time.perf_counter()
+    try:
+        with SyncCount() as syncs, CollectiveCount() as collectives:
+            history, _ = train_cli(workdir / "nccl_1", "kfac", TRAIN_ITERATIONS, "--backend", "nccl")
+        counts = launch_counts()
+        seconds = time.perf_counter() - start
+        group_left = not torch.distributed.is_initialized()
+        os.environ["MASTER_PORT"] = one_rank_launch()["MASTER_PORT"]
+        costs = collective_costs(parallel.initialize_distributed("cuda:0", "nccl"))
+        parallel.shutdown_distributed()
+    finally:
+        for key in launch:
+            os.environ.pop(key)
+    energies = np.array([row["energy"].real for row in history])
+    want = np.array([row["energy"].real for row in train_history])
+    times = [row["step_time"] * 1e3 for row in history]
+    report["nccl_1"] = dict(
+        seconds=seconds, energies=energies.tolist(),
+        largest_rel_diff=float(np.max(np.abs(energies - want) / np.abs(want))),
+        step_time_median_ms=statistics.median(times), step_times_ms=times,
+        train_step_time_median_ms=statistics.median(row["step_time"] * 1e3 for row in train_history),
+        syncs=syncs.report(), launches=counts, group_left=group_left,
+        collectives_per_iteration={k: v / TRAIN_ITERATIONS for k, v in collectives.counts.items()},
+        collective_costs=costs,
+    )
+    emit(phase="distributed", part="nccl_1", nvidia_smi=smi, **report["nccl_1"])
+    if len(energies) != TRAIN_ITERATIONS or not report["nccl_1"]["largest_rel_diff"] <= DIST_ENERGY_REL:
+        failures.append(f"nccl_1: energies {report['nccl_1']['largest_rel_diff']:.2e} from phase train's")
+    if counts != train_counts:
+        failures.append(f"nccl_1: launches {counts} != phase train's {train_counts}")
+    if not (syncs.blocks == TRAIN_ITERATIONS and syncs.report()["syncs_per_block"] <= 1):
+        failures.append(f"nccl_1: synchronising calls {syncs.report()}")
+    if not report["nccl_1"]["group_left"]:
+        failures.append("nccl_1: the process group was not left")
+
+    # gloo_2: two ranks on card 0, then the checkpoint resumed on one process.
+    report["gloo_2"], bad = two_rank_training("gloo_2", workdir, "cuda:0", "gloo",
+                                              train_history, constraint)
+    failures.extend(bad)
+    resumed = train.cli([
+        "--yml", str(REPO / "artifacts/prod_r4/config.yml"), "optim.optimizer=kfac",
+        f"log.restore_path={workdir / 'gloo_2' / f'ckpt_{RESUME_STEP + TRAIN_ITERATIONS - 1:06d}.npz'}",
+        f"log.save_path={workdir / 'gloo_2_resumed'}",
+        f"optim.iterations={RESUME_STEP + TRAIN_ITERATIONS + DIST_RESUME}",
+    ])
+    _, final, _ = LogManager.restore_checkpoint(
+        workdir / "gloo_2_resumed" / f"ckpt_{RESUME_STEP + TRAIN_ITERATIONS + DIST_RESUME - 1:06d}.npz")
+    report["gloo_2"]["resumed_on_one"] = dict(
+        energies=[row["energy"].real for row in resumed], kfac_step_exit=int(final.opt_state.step))
+    emit(phase="distributed", part="gloo_2", nvidia_smi=smi, **report["gloo_2"])
+    if not (len(resumed) == DIST_RESUME and np.isfinite(report["gloo_2"]["resumed_on_one"]["energies"]).all()
+            and int(final.opt_state.step) == RESUME_STEP + TRAIN_ITERATIONS + DIST_RESUME):
+        failures.append(f"gloo_2: the resume on one process {report['gloo_2']['resumed_on_one']}")
+
+    # runner_2: the ED overlap on two gloo ranks.
+    out_file = workdir / "runner_2_ed_overlap.npz"
+    start = time.perf_counter()
+    outs = spawn_ranks("runner", [str(GROUND_STATE), "--estimator", "ed_overlap", "--steps", "100",
+                                  "--out", str(out_file)], 2, "cuda:0", "gloo")
+    with np.load(out_file) as f:
+        overlap = float(f["overlap"])
+    saved = [err.count("Saved") for _, err in outs]
+    report["runner_2"] = dict(overlap=overlap, seconds=time.perf_counter() - start, saved=saved,
+                              launches=[o["launches"] for o, _ in outs])
+    emit(phase="distributed", part="runner_2", nvidia_smi=smi, **report["runner_2"])
+    if not (abs(overlap - ED_OVERLAP) <= ED_OVERLAP_TOL and overlap <= 1 + 1e-6):
+        failures.append(f"runner_2: overlap {overlap} not within {ED_OVERLAP_TOL} of {ED_OVERLAP}")
+    if saved != [1, 0]:
+        failures.append(f"runner_2: saves by rank {saved}")
+
+    # nccl_2: one card a rank, where there are two.
+    if torch.cuda.device_count() >= 2:
+        report["nccl_2"], bad = two_rank_training("nccl_2", workdir, "cuda", "nccl",
+                                                  train_history, constraint)
+        failures.extend(bad)
+    else:
+        report["nccl_2"] = dict(run=False, reason=f"{torch.cuda.device_count()} card: NCCL "
+                                "refuses two ranks on one card")
+    emit(phase="distributed", part="nccl_2", nvidia_smi=smi, **report["nccl_2"])
+    emit(phase="distributed", nvidia_smi=smi, failures=failures,
+         seconds={k: v.get("seconds") for k, v in report.items()})
+    if failures:
+        raise AssertionError(f"distributed: {failures}")
+
+
 def main() -> int:
+    if len(sys.argv) > 2 and sys.argv[1] == "--rank-child":
+        return rank_child(sys.argv[2], sys.argv[3:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -1369,7 +1783,7 @@ def main() -> int:
         counts = phase_slice(Path(workdir))
         phase_slice_excited(Path(workdir))
         phase_end_to_end(device)
-        train_counts = phase_train(Path(workdir), device)
+        train_counts, train_history = phase_train(Path(workdir), device)
         excited_counts = phase_excited(Path(workdir))
         start = time.perf_counter()
         phase_laughlin(Path(workdir), device)
@@ -1378,6 +1792,7 @@ def main() -> int:
         emit(phase="slice_6_phases", seconds=time.perf_counter() - start)
         phase_observables(Path(workdir),
                           Path(workdir) / "laughlin" / f"ckpt_{LAUGHLIN_ITERATIONS - 1:06d}.npz", smi)
+        phase_distributed(Path(workdir), train_history, train_counts, smi)
 
     sources = {
         "jet_layernorm": ("deephall_tpu_torch/csrc/jet_layernorm.cu", "deephall_tpu/ops/jet_layernorm.py:58"),

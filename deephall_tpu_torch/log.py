@@ -25,6 +25,12 @@ class outside NumPy and the builtins.  ``opt_state`` goes both ways:
 Paths (``log.save_path``, ``log.restore_path``, a checkpoint given to
 :meth:`LogManager.restore_checkpoint`) are local paths or ``scheme://`` fsspec
 URLs, through :class:`AnyPath`; ``fsspec`` is imported only for a URL.
+
+Over several ranks only rank 0 writes (``write_artifacts``): the run
+directory, ``config.yml``, the CSV and the checkpoints.  Every rank calls
+:meth:`LogManager.save_checkpoint`, which gathers the walkers of all ranks,
+and every rank reads a restored checkpoint whole and keeps its own rows, so a
+checkpoint resumes on any number of ranks.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from pathlib import Path
 
 import numpy as np
 
+from deephall_tpu_torch import parallel
 from deephall_tpu_torch.config import Config, to_yaml
 from deephall_tpu_torch.types import AdamState, CheckpointState, KfacState
 
@@ -256,12 +263,33 @@ class StatsWriter:
             self.stats_path.unlink(missing_ok=True)
 
 
-class LogManager:
-    """Save-dir lifecycle: auto-naming, config audit, checkpoint save/restore."""
+class _NullWriter:
+    """The stats sink of the ranks other than 0: accepts and drops."""
 
-    def __init__(self, cfg: Config):
+    def hide(self, *args) -> None:
+        del args
+
+    def log(self, **kwargs) -> None:
+        del kwargs
+
+    def force_flush(self) -> None:
+        pass
+
+
+class LogManager:
+    """Save-dir lifecycle: auto-naming, config audit, checkpoint save/restore.
+
+    With ``write_artifacts=False`` (every rank but 0) restoring works as usual
+    but nothing is written: no run directory, no ``config.yml``, no checkpoint,
+    and ``create_writer`` yields a sink that drops the rows.  ``now`` names a
+    run without ``log.save_path`` (every rank must pass rank 0's time).
+    """
+
+    def __init__(self, cfg: Config, write_artifacts: bool = True,
+                 now: datetime.datetime | None = None):
+        self.write_artifacts = write_artifacts
         if cfg.log.save_path is None:
-            timestamp = datetime.datetime.now().strftime("%Y%m%d_%H:%M:%S")
+            timestamp = (now or datetime.datetime.now()).strftime("%Y%m%d_%H:%M:%S")
             self.save_path = AnyPath(
                 f"DeepHall_n{sum(cfg.system.nspins)}l{cfg.system.flux}_{timestamp}"
             )
@@ -273,11 +301,14 @@ class LogManager:
             self.restore_path = AnyPath(cfg.log.restore_path)
             if not self.restore_path.exists():
                 logger.warning("Restore path %s does not exist!", self.restore_path)
-        self.save_path.mkdir(parents=True, exist_ok=True)
+        if self.write_artifacts:
+            self.save_path.mkdir(parents=True, exist_ok=True)
         self.check_config(cfg)
 
     def check_config(self, cfg: Config) -> None:
         """Save the current config, diffing against the restored run's config."""
+        if not self.write_artifacts:
+            return
         restore_config_path = self.restore_path / "config.yml"
         current = [f"git_commit: {get_git_commit()}\n"]
         current.extend(to_yaml(cfg).splitlines(keepends=True))
@@ -293,14 +324,21 @@ class LogManager:
         """Save ``ckpt_{step:06d}.npz`` in the JAX package's format.
 
         ``state.params`` is the flax tree (``weights.params_to_flax``),
-        ``state.data`` a NumPy array or tensor; ``adapt`` holds ``pmoves`` and ``t``.
+        ``state.data`` a NumPy array or this rank's tensor of walkers;
+        ``adapt`` holds ``pmoves`` and ``t``.  Every rank calls it: a tensor is
+        gathered from all ranks (a collective), then rank 0 writes the whole
+        batch.
         """
+        data = state.data
+        if hasattr(data, "detach"):
+            data = parallel.all_gather_rows(data.detach())
+        if not self.write_artifacts:
+            return
         ckpt_path = self.save_path / f"ckpt_{step:06d}.npz"
         logger.info("Saving checkpoint %s", ckpt_path)
         extras = {k: np.asarray(v) for k, v in (adapt or {}).items()}
-        data = state.data
         if hasattr(data, "detach"):
-            data = data.detach().cpu().numpy()
+            data = data.cpu().numpy()
         with ckpt_path.open("wb") as f:
             np.savez_compressed(
                 f,
@@ -357,8 +395,12 @@ class LogManager:
         return step, CheckpointState(params, data, opt_state, np.float32(mcmc_width)), adapt
 
     @contextmanager
-    def create_writer(self) -> Generator[StatsWriter, None, None]:
-        """A StatsWriter for ``train_stats.csv`` under the save dir."""
+    def create_writer(self) -> Generator[StatsWriter | _NullWriter, None, None]:
+        """A StatsWriter for ``train_stats.csv`` under the save dir (a sink
+        that drops the rows where this process writes no artifacts)."""
+        if not self.write_artifacts:
+            yield _NullWriter()
+            return
         with StatsWriter(self.save_path / "train_stats.csv") as writer:
             yield writer
 

@@ -20,6 +20,13 @@ phi_j`` of converged lower states, whose overlap penalties fold into the
 per-walker differences (:func:`orthogonality_stats_and_diff`).  ``ENERGY_DIFF``
 takes the current ``log psi`` from one extra forward without gradients; the
 gradient modes take it from the forward that autograd already holds.
+
+Over several ranks (:mod:`deephall_tpu_torch.parallel`) the walkers are this
+rank's shard and every statistic is global: means reduce their sums and
+non-NaN counts, the clip takes its quantiles on the gathered array, the
+overlap's shift is the largest value over the ranks, and each rank's backward
+pass gives a partial gradient (its weights divide by the global count) that
+one collective sums.  Without a process group none of these makes a call.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import enum
 
 import torch
 
+from deephall_tpu_torch import parallel
 from deephall_tpu_torch.config import System
 from deephall_tpu_torch.hamiltonian import forward_laplacian_local_energy, local_energy
 from deephall_tpu_torch.networks.blocks import FISHER_COTANGENT, kfac_capture
@@ -36,26 +44,36 @@ from deephall_tpu_torch.types import LossStats
 
 
 def nanmean(x: torch.Tensor, dim: int | None = None) -> torch.Tensor:
-    """Mean over the entries that are not NaN (either part, for complex input);
-    over ``dim`` with the dimension kept, if given."""
-    if not x.is_complex():
-        return torch.nanmean(x) if dim is None else torch.nanmean(x, dim=dim, keepdim=True)
+    """Mean over the entries that are not NaN (either part, for complex input)
+    and over every rank's walkers; over ``dim`` with the dimension kept, if
+    given.  The sum and the count are ``torch.nanmean``'s own."""
     valid = ~torch.isnan(x)
-    total = torch.where(valid, x, torch.zeros_like(x))
-    if dim is None:
-        return total.sum() / valid.sum()
-    return total.sum(dim=dim, keepdim=True) / valid.sum(dim=dim, keepdim=True)
+    sums = {} if dim is None else {"dim": dim, "keepdim": True}
+    if x.is_complex():
+        total = torch.where(valid, x, torch.zeros_like(x)).sum(**sums)
+    else:
+        total = torch.nansum(x, **sums)
+    total, count = parallel.all_reduce_sum(total, valid.sum(**sums).to(total.real.dtype))
+    return total / count
+
+
+def _clip_bounds(everything: torch.Tensor, scale: float):
+    q1 = torch.nanquantile(everything, 0.25)
+    q3 = torch.nanquantile(everything, 0.75)
+    iqr = q3 - q1
+    return q1 - scale * iqr, q3 + scale * iqr
 
 
 def iqr_clip_real(x: torch.Tensor, scale: float = 100.0) -> torch.Tensor:
-    q1 = torch.nanquantile(x, 0.25)
-    q3 = torch.nanquantile(x, 0.75)
-    iqr = q3 - q1
-    return torch.clamp(x, q1 - scale * iqr, q3 + scale * iqr)
+    """``x`` clamped to the median +- ``scale`` IQR of every rank's walkers."""
+    return torch.clamp(x, *_clip_bounds(parallel.all_gather_rows(x), scale))
 
 
 def iqr_clip(x: torch.Tensor, scale: float = 100.0) -> torch.Tensor:
-    return torch.complex(iqr_clip_real(x.real, scale), iqr_clip_real(x.imag, scale))
+    """The real and imaginary parts clipped apart (one gather for both)."""
+    everything = parallel.all_gather_rows(x)
+    return torch.complex(torch.clamp(x.real, *_clip_bounds(everything.real, scale)),
+                         torch.clamp(x.imag, *_clip_bounds(everything.imag, scale)))
 
 
 def orthogonality_stats_and_diff(
@@ -81,10 +99,12 @@ def orthogonality_stats_and_diff(
     log_ratios = log_ratios.detach()
     real = log_ratios.real
     shift = torch.where(torch.isnan(real), -torch.inf, real).amax(dim=1, keepdim=True)
+    # One shift for every rank's walkers: a shift per rank would not cancel.
+    shift = parallel.all_reduce_max(shift)
     shift = torch.where(torch.isfinite(shift), shift, torch.zeros_like(shift))
     rho = torch.exp(log_ratios - shift)
     r = nanmean(rho, dim=1)
-    n = torch.nanmean(rho.abs() ** 2, dim=1, keepdim=True)
+    n = nanmean(rho.abs() ** 2, dim=1)
     overlap = r.abs() ** 2 / n  # [n_states, 1]
     diff = penalty * (torch.conj(r) * rho / n - overlap)
     return overlap.sum(), diff.sum(dim=0)
@@ -162,9 +182,13 @@ def stats_and_clipped_diff(
 
 
 def vjp_weights(diff: torch.Tensor) -> torch.Tensor:
-    """Cotangent weights ``w_i = 2 (E_L,i - E_clip) / count``; NaN walkers weigh 0."""
+    """Cotangent weights ``w_i = 2 (E_L,i - E_clip) / count``; NaN walkers weigh 0.
+
+    ``count`` is over every rank's walkers, so that the ranks' backward passes
+    give partial sums of the gradient.
+    """
     valid = ~torch.isnan(diff)
-    count = torch.clamp(valid.sum(), min=1)
+    count = torch.clamp(parallel.all_reduce_sum(valid.sum()), min=1)
     return torch.where(valid, torch.nan_to_num(diff), torch.zeros_like(diff)) * (2.0 / count)
 
 
@@ -173,6 +197,14 @@ def _pullback(logpsi: torch.Tensor, w_re, w_im, inputs: list, retain_graph: bool
     out = (logpsi.real * w_re + logpsi.imag * w_im).sum()
     grads = torch.autograd.grad(out, inputs, retain_graph=retain_graph, allow_unused=True)
     return [torch.zeros_like(x) if g is None else g for x, g in zip(inputs, grads)]
+
+
+def _sum_over_ranks(grads: list) -> list:
+    """The ranks' partial gradients summed, in one collective over one flat buffer."""
+    if not grads:
+        return grads
+    out = parallel.all_reduce_sum(*grads)
+    return [out] if len(grads) == 1 else list(out)
 
 
 def _nan_to_num(names, grads) -> dict[str, torch.Tensor]:
@@ -192,7 +224,8 @@ def gradient_and_capture(model, system: System, data: torch.Tensor, el, other_ob
     log_ratios = fixed_state_log_ratios(fixed_states, logpsi, data) if fixed_states else None
     stats, diff = stats_and_clipped_diff(system, el, other_observables, log_ratios, penalties)
     w = vjp_weights(diff)
-    grads = _pullback(logpsi, w.real, w.imag, list(params.values()), retain_graph=True)
+    grads = _sum_over_ranks(
+        _pullback(logpsi, w.real, w.imag, list(params.values()), retain_graph=True))
     paths = list(capture.outputs)
     fisher = torch.full_like(w.real, FISHER_COTANGENT)
     dy = _pullback(logpsi, fisher, torch.zeros_like(w.imag),
@@ -237,9 +270,11 @@ def make_loss_fn(model, system: System, mode: LossMode = LossMode.ENERGY_DIFF, f
         # Re[conj(grad logpsi) w] = grad(Re psi) . Re w + grad(Im psi) . Im w
         g_re = _pullback(logpsi, w.real, w.imag, list(params.values()), retain_graph=sr)
         if not sr:
-            return stats, _nan_to_num(params, g_re)
+            return stats, _nan_to_num(params, _sum_over_ranks(g_re))
         # Im[conj(grad logpsi) w] = grad(Re psi) . Im w - grad(Im psi) . Re w
         g_im = _pullback(logpsi, w.imag, -w.real, list(params.values()), retain_graph=False)
+        both = _sum_over_ranks(g_re + g_im)
+        g_re, g_im = both[:len(g_re)], both[len(g_re):]
         return stats, {
             name: torch.complex(torch.nan_to_num(a), torch.nan_to_num(b))
             for name, a, b in zip(params, g_re, g_im)

@@ -4,6 +4,11 @@ All-electron moves from a tangent-plane Gaussian proposal rotated to each
 electron, accepted on ``2 Re log psi`` ratios.  The draws come from an explicit
 ``torch.Generator``; :func:`sph_sampling` and :func:`mh_update` also take the
 draws as arguments, so a test can feed both packages the same numbers.
+
+Over several ranks (:mod:`deephall_tpu_torch.parallel`) ``data`` is this
+rank's shard: every rank draws the numbers of the whole batch from the same
+generator state and keeps its own rows, and the acceptance is the mean over
+every walker, so the chain does not depend on the number of ranks.
 """
 
 from __future__ import annotations
@@ -12,6 +17,8 @@ import math
 from collections.abc import Callable
 
 import torch
+
+from deephall_tpu_torch import parallel
 
 
 def sph_sampling(
@@ -59,7 +66,8 @@ def mh_update(
 ):
     """One all-electron move of the whole batch.
 
-    Returns ``(x_new, lp_new, accept_rate)``; ``accept_rate`` is a 0-d tensor.
+    Returns ``(x_new, lp_new, accept_rate)``; ``accept_rate`` is a 0-d tensor,
+    the mean over these walkers.
     """
     x2 = sph_sampling(x1, stddev, normal, uniform)
     lp_2 = 2.0 * f(x2).real
@@ -72,7 +80,9 @@ def mh_update(
 def make_mcmc_step(batch_network: Callable[[torch.Tensor], torch.Tensor], steps: int = 10):
     """``mcmc_step(data, width, generator) -> (data, pmove)``: ``steps`` MH moves.
 
-    ``pmove`` is the mean acceptance over the moves (a 0-d tensor on the device).
+    ``pmove`` is the mean acceptance over the moves and over every rank's
+    walkers (a 0-d tensor on the device, one collective a sweep).  ``data`` is
+    this rank's shard; the draws are those of the global batch.
     """
 
     def mcmc_step(data: torch.Tensor, width, generator: torch.Generator):
@@ -80,14 +90,15 @@ def make_mcmc_step(batch_network: Callable[[torch.Tensor], torch.Tensor], steps:
         accepts = torch.zeros((), device=data.device)
         shape = data.shape[:-1]
         for _ in range(steps):
-            normal = torch.randn(shape, generator=generator, device=data.device)
-            uniform = torch.rand(shape, generator=generator, device=data.device)
-            uniform_accept = torch.rand(lp.shape, generator=generator, device=data.device)
+            draws = dict(generator=generator, device=data.device)
+            normal = parallel.draw_rows(torch.randn, shape, **draws)
+            uniform = parallel.draw_rows(torch.rand, shape, **draws)
+            uniform_accept = parallel.draw_rows(torch.rand, lp.shape, **draws)
             data, lp, rate = mh_update(
                 batch_network, data, lp, width, normal, uniform, uniform_accept
             )
             accepts = accepts + rate
-        return data, accepts / steps
+        return data, parallel.all_reduce_mean(accepts / steps)
 
     return mcmc_step
 

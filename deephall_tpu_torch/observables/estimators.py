@@ -13,6 +13,12 @@ Histograms follow ``jnp.histogram`` exactly: float32 edges equal to
 values outside the range dropped through two overflow slots.  ``torch.histogram``
 runs only on the CPU, ``torch.histc`` takes no weights and ``torch.bincount``
 reads its input's maximum back to the host.
+
+Over several ranks (:mod:`deephall_tpu_torch.parallel`) the walkers are this
+rank's shard and each per-step function returns the value of the whole batch:
+histograms and means are reduced over the ranks every step, the insertion
+points and the ratios' shift are those of the whole batch, so every rank holds
+the same accumulators.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from deephall_tpu_torch import parallel
 from deephall_tpu_torch.config import Config
 from deephall_tpu_torch.geometry import pairwise_cos
 from deephall_tpu_torch.networks import make_network
@@ -64,12 +71,14 @@ def angle_histogram(
 
 
 def density_histogram(data: torch.Tensor, bins: int) -> torch.Tensor:
-    """Histogram of electron polar angles over [0, pi] (density profile)."""
-    return angle_histogram(data[..., 0].reshape(-1), bins)
+    """Histogram of electron polar angles over [0, pi] (density profile), summed
+    over the ranks."""
+    return parallel.all_reduce_sum(angle_histogram(data[..., 0].reshape(-1), bins))
 
 
 def pair_histogram(data: torch.Tensor, bins: int) -> torch.Tensor:
-    """One step's normalised pair-correlation histogram g(theta_12).
+    """One step's normalised pair-correlation histogram g(theta_12), over every
+    rank's walkers (the mean of the ranks' histograms, each over its shard).
 
     1/sin-weighted pairwise-angle histogram with the weight floored at sin =
     1e-6: exactly (anti)podal pairs are measure-zero but reachable in float32
@@ -83,15 +92,17 @@ def pair_histogram(data: torch.Tensor, bins: int) -> torch.Tensor:
     weights = 1 / torch.clamp(torch.sin(theta12), min=1e-6)
     hist = angle_histogram(theta12, bins, weights)
     # Factor 2 from (i != j) -> (i < j); per-step normalisation.
-    return hist * 4 * bins / batch_size / nelec**2 / math.pi
+    return parallel.all_reduce_mean(hist * 4 * bins / batch_size / nelec**2 / math.pi)
 
 
 def sample_insertion_points(generator: torch.Generator, batch: tuple[int, ...],
                             device=None) -> torch.Tensor:
-    """Uniform sphere points r' used as 1-RDM insertion positions, ``[*batch, 2]``."""
-    u = torch.rand(batch, generator=generator, device=device) * 2 - 1
+    """Uniform sphere points r' used as 1-RDM insertion positions, ``[*batch, 2]``;
+    ``batch`` is this rank's, the draws are those of the whole batch."""
+    draws = dict(generator=generator, device=device)
+    u = parallel.draw_rows(torch.rand, batch, **draws) * 2 - 1
     theta = torch.arccos(u)
-    phi = (torch.rand(batch, generator=generator, device=device) * 2 - 1) * math.pi
+    phi = (parallel.draw_rows(torch.rand, batch, **draws) * 2 - 1) * math.pi
     return torch.stack([theta, phi], dim=-1)
 
 
@@ -132,8 +143,8 @@ def make_overlap_ratios(cfg: Config, network) -> Callable:
     """Build the per-walker importance ratios against the analytic Laughlin state.
 
     overlap = |E[r]|^2 / E[|r|^2] with r = exp(log phi - log psi - shift); the
-    per-step mean shift keeps the exponentials in range and cancels in the final
-    quotient.
+    per-step mean shift (over every rank's walkers) keeps the exponentials in
+    range and cancels in the final quotient.
 
     Returns:
         ``ratios(data [B,N,2]) -> (ratio [B] complex, ratio_square [B])``.
@@ -155,7 +166,8 @@ def make_target_ratios(network, target_logpsi) -> Callable:
         logpsi = network(data)
         logphi = target_logpsi(data)
         diff = logphi - logpsi
-        shift = torch.mean(diff.real)
+        # One shift for every rank: a shift per rank would not cancel.
+        shift = parallel.all_reduce_mean(torch.mean(diff.real))
         ratio = torch.exp(diff - shift)
         return ratio, torch.abs(ratio) ** 2
 
@@ -231,7 +243,7 @@ def make_one_rdm(cfg: Config, network) -> Estimator:
 
     def evaluate(generator, data, state):
         r_prime = sample_insertion_points(generator, data.shape[:1], data.device)[:, None, :]
-        product = torch.mean(batch_product(data, r_prime), dim=0)
+        product = parallel.all_reduce_mean(torch.mean(batch_product(data, r_prime), dim=0))
         return {"one_rdm": state["one_rdm"] + product, "count": state["count"] + 1.0}
 
     def digest(state, steps: int):
@@ -275,10 +287,13 @@ def make_ed_overlap(cfg: Config, network, state: int = 0) -> Estimator:
 
 
 def _masked_mean(x: torch.Tensor) -> torch.Tensor:
-    """``jnp.nanmean``, complex values included (a NaN in either part is dropped)."""
+    """``jnp.nanmean`` over every rank's walkers, complex values included (a NaN
+    in either part is dropped)."""
     nan = torch.isnan(x.real) | torch.isnan(x.imag) if x.is_complex() else torch.isnan(x)
     keep = ~nan
-    return torch.where(keep, x, 0).sum() / keep.sum()
+    total = torch.where(keep, x, 0).sum()
+    total, count = parallel.all_reduce_sum(total, keep.sum().to(total.real.dtype))
+    return total / count
 
 
 def _overlap_estimator(ratios) -> Estimator:
@@ -338,8 +353,8 @@ def make_structure_factor(cfg: Config, network, lmax: int = 8) -> Estimator:
 
 
 def pair_legendre_means(data: torch.Tensor, lmax: int) -> torch.Tensor:
-    """``[lmax + 1]``: the mean over walkers and ordered pairs of ``P_L(cos theta_12)``
-    (``P_0`` = 1), by the three-term recurrence."""
+    """``[lmax + 1]``: the mean over every rank's walkers and ordered pairs of
+    ``P_L(cos theta_12)`` (``P_0`` = 1), by the three-term recurrence."""
     nelec = data.shape[-2]
     x = pairwise_cos(data)  # [B, N, N]
     mask = 1.0 - torch.eye(nelec, device=data.device)
@@ -349,7 +364,7 @@ def pair_legendre_means(data: torch.Tensor, lmax: int) -> torch.Tensor:
     for lval in range(1, lmax + 1):
         means.append(torch.mean(torch.sum(p_cur * mask, (-2, -1))) / (nelec * (nelec - 1)))
         p_prev, p_cur = p_cur, ((2 * lval + 1) * x * p_cur - lval * p_prev) / (lval + 1)
-    return torch.stack(means)
+    return parallel.all_reduce_mean(torch.stack(means))
 
 
 ESTIMATORS = {

@@ -3,12 +3,15 @@
 Restore a checkpoint and its ``config.yml`` sidecar (local paths or fsspec
 URLs), walk the Metropolis chain with the float32 network, accumulate one
 registered estimator on the device and save an ``.npz``.  Nothing is read back
-to the host between the set-up and the digest.
+to the host between the set-up and the digest.  Under ``torchrun`` the walkers
+split over the ranks (:mod:`deephall_tpu_torch.parallel`), every rank holds
+the accumulators of the whole batch, and rank 0 alone writes or prints them.
 
 Usage::
 
     python -m deephall_tpu_torch.observables.runner CKPT --estimator overlap --steps 100 \\
         [--device cpu]
+    torchrun --nproc_per_node=K -m deephall_tpu_torch.observables.runner CKPT ...
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import numpy as np
 import torch
 import yaml
 
-from deephall_tpu_torch import mcmc
+from deephall_tpu_torch import mcmc, parallel
 from deephall_tpu_torch.config import Config
 from deephall_tpu_torch.log import AnyPath, LogManager, init_logging
 from deephall_tpu_torch.networks import make_network
@@ -76,13 +79,14 @@ def evaluate_observable(
     :func:`load_run`, is accepted for the JAX package's signature and not
     read).  The chain samples ``|psi|^2`` of the float32 network; its width
     adapts on the device toward the [0.5, 0.55] acceptance window every
-    ``max(1, min(cfg.mcmc.adapt_frequency, steps // 5))`` steps.
+    ``max(1, min(cfg.mcmc.adapt_frequency, steps // 5))`` steps.  ``data`` is
+    the global batch; in a process group each rank walks its rows of it.
     """
     del params
     device = resolve_device(device)
     set_full_precision()
     model = model.to(device)
-    data = torch.as_tensor(data, dtype=torch.float32, device=device)
+    data = parallel.shard_rows(torch.as_tensor(data, dtype=torch.float32)).to(device)
     width = torch.tensor(float(mcmc_width), dtype=torch.float32, device=device)
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
@@ -116,16 +120,29 @@ def cli(argv: list[str] | None = None) -> dict[str, np.ndarray]:
         help="ed_overlap only: ED eigenstate index within the target Lz block "
         "(chained sector states)",
     )
-    parser.add_argument("--device", default="cuda", help="torch device to run on (default: cuda)")
+    parser.add_argument(
+        "--device", default="cuda",
+        help="torch device to run on (default: cuda, which is cuda:LOCAL_RANK under torchrun)")
+    parser.add_argument(
+        "--backend", choices=parallel.BACKENDS, default=None,
+        help="torch.distributed backend under torchrun (default: nccl on CUDA, gloo on the "
+        "CPU); gloo runs several ranks on one card")
     args = parser.parse_args(argv if argv is not None else sys.argv[1:])
 
     init_logging()
-    cfg, model, params, data, width = load_run(args.ckpt)
-    estimator_kwargs = {"state": args.ed_state} if args.estimator == "ed_overlap" else None
-    results = evaluate_observable(
-        cfg, model, params, data, width, args.estimator, args.steps, args.mcmc_steps,
-        args.seed, estimator_kwargs=estimator_kwargs, device=args.device,
-    )
+    device = parallel.initialize_distributed(args.device, args.backend)
+    try:
+        cfg, model, params, data, width = load_run(args.ckpt)
+        estimator_kwargs = {"state": args.ed_state} if args.estimator == "ed_overlap" else None
+        results = evaluate_observable(
+            cfg, model, params, data, width, args.estimator, args.steps, args.mcmc_steps,
+            args.seed, estimator_kwargs=estimator_kwargs, device=device,
+        )
+        writes = parallel.rank() == 0  # the accumulators are the same on every rank
+    finally:
+        parallel.shutdown_distributed()
+    if not writes:
+        return results
     if args.out:
         np.savez(args.out, **results)
         logger.info("Saved %s", args.out)

@@ -2,7 +2,10 @@
 
 Every step has the interface ``step(CheckpointState) -> (CheckpointState,
 stats)``: it reads the walkers and the optimizer state from the state, updates
-the model's parameters in place and returns the new optimizer state.
+the model's parameters in place and returns the new optimizer state.  Over
+several ranks the losses return the statistics and the gradient of the whole
+batch, so every rank takes the same step on its replicas of the parameters and
+of the state, and they stay equal bit for bit.
 """
 
 from __future__ import annotations

@@ -5,7 +5,9 @@ bias-corrected with ``count + 1`` and the learning rate is the schedule at the
 count before the increment, as optax's ``scale_by_adam`` and
 ``scale_by_learning_rate`` compute them.  Parameters are updated in place, so
 their ``Tensor._version`` moves and the attention kernels' prepared weights are
-rebuilt (``ops/jet_attention.py:prepare_weights``).
+rebuilt (``ops/jet_attention.py:prepare_weights``).  The gradient is that of
+the whole batch (summed over the ranks by the loss), so every rank's update is
+the same.
 """
 
 from __future__ import annotations

@@ -28,6 +28,7 @@ from typing import NamedTuple
 
 import torch
 
+from deephall_tpu_torch import parallel
 from deephall_tpu_torch.config import OptimizerKfac
 from deephall_tpu_torch.networks.blocks import LayerNorm, kfac_capture
 from deephall_tpu_torch.types import CheckpointState, KfacState
@@ -63,7 +64,12 @@ def discover(model, nelec: int) -> list[LayerSpec]:
 
 
 def factor_update(specs: list[LayerSpec], inputs: dict, dy: dict) -> tuple[dict, dict]:
-    """One step's curvature blocks from the captured inputs and sensitivities."""
+    """One step's curvature blocks from the captured inputs and sensitivities.
+
+    Every block is a mean over walkers; over several ranks each rank's means
+    over its shard are averaged in one collective, so that every rank holds
+    the moments of the whole batch and solves the same damped systems.
+    """
     kron, diag = {}, {}
     for spec in specs:
         a, g = inputs[spec.path], dy[spec.path]
@@ -83,6 +89,12 @@ def factor_update(specs: list[LayerSpec], inputs: dict, dy: dict) -> tuple[dict,
                 "scale": torch.mean(g_scale**2, dim=0),
                 "bias": torch.mean(g_bias**2, dim=0),
             }
+    # Every block has two leaves, so the collective returns a tuple.
+    leaves = [(block, leaf) for blocks in (kron, diag) for block in blocks.values()
+              for leaf in block]
+    means = parallel.all_reduce_mean(*(block[leaf] for block, leaf in leaves))
+    for (block, leaf), value in zip(leaves, means):
+        block[leaf] = value
     return kron, diag
 
 

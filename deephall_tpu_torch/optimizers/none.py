@@ -1,7 +1,8 @@
 """Inference (no-op) optimizer: evaluate statistics, keep parameters fixed.
 
 Port of ``deephall_tpu/optimizers/none.py``: ``ENERGY_DIFF`` mode, so no
-parameter gradient is computed at all.
+parameter gradient is computed at all.  The statistics are those of every
+rank's walkers.
 """
 
 from __future__ import annotations

@@ -11,16 +11,27 @@ optimizer state, on (time AND step multiple) OR NaN OR last step OR SIGTERM.
 ``log.profile_dir`` records a ``torch.profiler`` trace of the blocks that
 cover ``[profile_start, profile_start + profile_steps)``.
 
+Launched by ``torchrun`` (or Slurm, or OpenMPI) on K processes, each rank
+holds ``batch_size / K`` walkers on its own device and the statistics, the
+gradient and the curvature are those of the whole batch
+(:mod:`deephall_tpu_torch.parallel`); rank 0 alone writes the CSV, the
+``config.yml`` sidecar, the checkpoints and the trace.  Every rank takes the
+same save decision from the block's one host read: it saves when any rank's
+clock or signal asks.  A single process reads its own clock and signal after
+that read, as before.
+
 The sweep runs under ``no_grad`` with its feature tower in bfloat16 unless
 ``DEEPHALL_MCMC_DTYPE`` says ``f32`` (the JAX package's variable and default);
 everything that feeds the local energy and the gradient runs in full float32,
 with TF32 switched off at import.  Only the training step builds a graph.
 
     python -m deephall_tpu_torch.train key=value ... [--yml file] [--device cpu]
+    torchrun --nproc_per_node=K -m deephall_tpu_torch.train key=value ... [--backend gloo]
 """
 
 from __future__ import annotations
 
+import datetime
 import logging
 import math
 import os
@@ -34,7 +45,7 @@ import numpy as np
 import torch
 import yaml
 
-from deephall_tpu_torch import mcmc, optimizers
+from deephall_tpu_torch import mcmc, optimizers, parallel
 from deephall_tpu_torch.config import (
     Config,
     OptimizerName,
@@ -48,7 +59,7 @@ from deephall_tpu_torch.loss import PENALTY_KEYS, LossMode, make_loss_fn
 from deephall_tpu_torch.networks import make_network
 from deephall_tpu_torch.observables import runner
 from deephall_tpu_torch.types import CheckpointState
-from deephall_tpu_torch.utils import resolve_device, set_full_precision
+from deephall_tpu_torch.utils import set_full_precision
 from deephall_tpu_torch.weights import init_params, load_flax, params_to_flax
 
 set_full_precision()
@@ -57,10 +68,13 @@ logger = logging.getLogger("deephall")
 
 
 def init_guess(generator: torch.Generator, batch: int, nelec: int, device) -> torch.Tensor:
-    """Uniform samples on the sphere: ``[batch, nelec, 2]`` (theta, phi)."""
-    u = torch.rand((batch, nelec), generator=generator, device=device)
+    """Uniform samples on the sphere: ``[batch, nelec, 2]`` (theta, phi) for the
+    global ``batch``, of which this rank keeps its rows."""
+    draws = dict(generator=generator, device=device)
+    shape = (batch // parallel.world_size(), nelec)
+    u = parallel.draw_rows(torch.rand, shape, **draws)
     theta = torch.arccos(2 * u - 1)
-    phi = (torch.rand((batch, nelec), generator=generator, device=device) * 2 - 1) * math.pi
+    phi = (parallel.draw_rows(torch.rand, shape, **draws) * 2 - 1) * math.pi
     return torch.stack([theta, phi], dim=-1)
 
 
@@ -178,6 +192,14 @@ def host_rows(stats: dict, pmove: torch.Tensor) -> list[dict]:
     return rows
 
 
+def save_flags(stop: bool, save_due: bool, device) -> torch.Tensor:
+    """``[stop, save_due]`` as a device tensor, each the largest over the ranks:
+    read with the block's statistics, so that every rank takes the same save
+    decision."""
+    return parallel.all_reduce_max(
+        torch.stack([torch.full((), float(v), device=device) for v in (stop, save_due)]))
+
+
 def _write_row(writer, row: dict) -> None:
     """One ``train_stats.csv`` row, with the JAX package's fields and formats."""
     extra = {"overlap": f"{row['overlap']:.4f}"} if "overlap" in row else {}
@@ -203,7 +225,7 @@ class Profile:
     def __init__(self, cfg: Config, device: torch.device):
         self.cfg, self.device = cfg.log, device
         self.profiler = None
-        self.done = cfg.log.profile_dir is None
+        self.done = cfg.log.profile_dir is None or parallel.rank() != 0
 
     def before_block(self, rel: int, length: int) -> None:
         """Start before the block that reaches ``profile_start``; stop at the
@@ -231,11 +253,29 @@ class Profile:
         self.profiler, self.done = None, True
 
 
-def train(cfg: Config, device: str | torch.device = "cuda") -> list[dict]:
-    """Run the VMC loop; returns each iteration's statistics as host numbers."""
-    device = resolve_device(device)
+def run_start(cfg: Config, device) -> datetime.datetime | None:
+    """Rank 0's clock, on every rank, for a run without ``log.save_path`` (its
+    directory's name); ``None`` for a run with one."""
+    if cfg.log.save_path is not None:
+        return None
+    stamp = torch.full((1,), time.time(), dtype=torch.float64, device=device)
+    parallel.broadcast_(stamp)
+    return datetime.datetime.fromtimestamp(stamp.item())
+
+
+def train(cfg: Config, device: str | torch.device = "cuda", backend: str | None = None) -> list[dict]:
+    """Run the VMC loop; returns each iteration's statistics as host numbers.
+
+    Joins the launch's process group first (``parallel.initialize_distributed``:
+    ``device`` ``cuda`` is this rank's card, ``backend`` NCCL or gloo).
+    """
     init_logging()
-    log_manager = LogManager(cfg)
+    device = parallel.initialize_distributed(device, backend)
+    ranks = parallel.world_size()
+    if cfg.batch_size % ranks:
+        raise ValueError(f"batch_size={cfg.batch_size} must be divisible by {ranks} ranks")
+    log_manager = LogManager(cfg, write_artifacts=parallel.rank() == 0,
+                             now=run_start(cfg, device))
     nelec = sum(cfg.system.nspins)
     generator = torch.Generator(device=device)
     generator.manual_seed(cfg.seed)
@@ -247,7 +287,7 @@ def train(cfg: Config, device: str | torch.device = "cuda") -> list[dict]:
         initial_step, state, adapt_restored = restored
         load_flax(model, state.params)
         opt_state = optimizers.validate_opt_state(cfg, state.opt_state)
-        data = torch.as_tensor(state.data, dtype=torch.float32)
+        data = parallel.shard_rows(torch.as_tensor(state.data, dtype=torch.float32))
         mcmc_width = float(state.mcmc_width)
     else:
         initial_step = 0
@@ -256,6 +296,9 @@ def train(cfg: Config, device: str | torch.device = "cuda") -> list[dict]:
         data = init_guess(generator, cfg.batch_size, nelec, device)
         mcmc_width = float(cfg.mcmc.width)
     model.to(device)
+    params = list(model.parameters())
+    if params:  # every rank starts from rank 0's parameters
+        parallel.broadcast_(*params)
     if cfg.optim.optimizer == OptimizerName.none:
         model.requires_grad_(False)
     data = data.to(device)
@@ -276,7 +319,9 @@ def train(cfg: Config, device: str | torch.device = "cuda") -> list[dict]:
         opt_state = opt_init(model, data)
     else:
         opt_state = optimizers.state_to(opt_state, device)
-    logger.info("Start VMC on %s", torch.cuda.get_device_name(device) if device.type == "cuda" else device)
+    logger.info("Start VMC on %s, rank %d of %d",
+                torch.cuda.get_device_name(device) if device.type == "cuda" else device,
+                parallel.rank(), ranks)
 
     with torch.no_grad():
         if initial_step == 0:
@@ -302,6 +347,9 @@ def train(cfg: Config, device: str | torch.device = "cuda") -> list[dict]:
     profile = Profile(cfg, device)
 
     history = []
+    # Under a process group the save gathers the walkers, a collective: every
+    # rank then takes the decision from the flags of all, read with the block.
+    grouped = parallel.in_group()
     last_save_time = time.time()
     killer = GracefulKiller()
     try:
@@ -313,23 +361,33 @@ def train(cfg: Config, device: str | torch.device = "cuda") -> list[dict]:
                 profile.before_block(step - initial_step, length)
                 start = time.perf_counter()
                 state, pmoves, t, stats, pmove = block(state, pmoves, t, length, penalties)
-                rows = host_rows(stats, pmove)
+                flags = {}
+                if grouped:
+                    both = save_flags(
+                        killer.kill_now,
+                        time.time() - last_save_time > cfg.log.save_time_interval, device)
+                    flags = {"stop": both[0].expand(length), "save_due": both[1].expand(length)}
+                rows = host_rows({**stats, **flags}, pmove)
                 step_time = (time.perf_counter() - start) / length
+                if grouped:
+                    stop, save_due = (rows[0][key] > 0 for key in flags)
                 for i, row in enumerate(rows):
+                    for key in flags:
+                        del row[key]
                     row.update(step=step + i, step_time=step_time)
                     _write_row(writer, row)
                 history.extend(rows)
                 step += length
                 energy_is_nan = any(math.isnan(row["energy"].real) for row in rows)
                 current_time = time.time()
+                if not grouped:
+                    stop = killer.kill_now
+                    save_due = current_time - last_save_time > cfg.log.save_time_interval
                 if (
-                    (
-                        current_time - last_save_time > cfg.log.save_time_interval
-                        and step % cfg.log.save_step_interval == 0
-                    )
+                    (save_due and step % cfg.log.save_step_interval == 0)
                     or energy_is_nan
                     or step >= cfg.optim.iterations
-                    or killer.kill_now
+                    or stop
                 ):
                     last_save_time = current_time
                     writer.force_flush()
@@ -339,7 +397,7 @@ def train(cfg: Config, device: str | torch.device = "cuda") -> list[dict]:
                                         state.mcmc_width.item()),
                         adapt={"pmoves": pmoves.cpu().numpy(), "t": np.int32(t.item())},
                     )
-                if killer.kill_now or energy_is_nan:
+                if stop or energy_is_nan:
                     raise SystemExit("=" * 30 + " ABORT " + "=" * 30)
     finally:
         profile.stop()
@@ -371,16 +429,25 @@ class GracefulKiller:
 
 
 def cli(argv: list[str] | None = None) -> list[dict]:
-    """``python -m deephall_tpu_torch.train key=value ... [--yml file] [--device cpu]``."""
+    """``python -m deephall_tpu_torch.train key=value ... [--yml file] [--device cpu]``;
+    under ``torchrun --nproc_per_node=K`` the walkers split over K ranks."""
     parser = ArgumentParser(
         prog="deephall-tpu-torch",
         description="Neural-network VMC for the fractional quantum Hall effect, "
-        "on PyTorch and CUDA.",
+        "on PyTorch and CUDA.  Several GPUs: torchrun --nproc_per_node=K -m "
+        "deephall_tpu_torch.train ... splits batch_size over K ranks, one card each.",
     )
     parser.add_argument("dotlist", help="path.to.key=value pairs for configuration", nargs="*")
     parser.add_argument("--yml", help="config YML file to merge")
     parser.add_argument(
-        "--device", default="cuda", help="torch device to run on (default: cuda)"
+        "--device", default="cuda",
+        help="torch device to run on (default: cuda, which is cuda:LOCAL_RANK under torchrun; "
+        "cuda:0 puts every rank on card 0, with --backend gloo)",
+    )
+    parser.add_argument(
+        "--backend", choices=parallel.BACKENDS, default=None,
+        help="torch.distributed backend under torchrun (default: nccl on CUDA, gloo on the "
+        "CPU); gloo runs several ranks on one card, which nccl refuses",
     )
     args = parser.parse_args(argv if argv is not None else (sys.argv[1:] or ["--help"]))
 
@@ -390,7 +457,10 @@ def cli(argv: list[str] | None = None) -> list[dict]:
             config = merge_dicts(config, yaml.safe_load(f) or {})
     config = merge_dicts(config, dotlist_to_dict(args.dotlist))
     config = resolve_interpolations(config)
-    return train(Config.from_dict(config), device=args.device)
+    try:
+        return train(Config.from_dict(config), device=args.device, backend=args.backend)
+    finally:
+        parallel.shutdown_distributed()
 
 
 if __name__ == "__main__":
