@@ -59,7 +59,10 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
    200 iterations, through the full-Hessian local energy: the mean energy
    within 0.001 of 6.87306 (``BASELINE.md``), L^2 < 0.005, no NaN, and on the
    last walkers the kinetic energy within 1e-3 of N/2 = 3 at the median
-   walker and in the batch mean; no kernel launches;
+   walker and in the batch mean; no kernel launches.  On the pole walkers of
+   ``scripts/torch_laughlin_pole_probe.py`` (one electron at pi - eps and at
+   eps, eps = 1e-3, 1e-4, 1e-5) the kinetic energy within 1e-4 of 3 and
+   |L^2| <= 1e-4 at every walker (the full-Hessian path runs in float64);
 9. hessian: the first 336 stored walkers of ``prod_r4`` through the kernel
    jet, the plain float32 jet, the float32 full-Hessian path over the plain
    forward and the float64 full-Hessian path: the kernel jet within 1e-4 of
@@ -105,7 +108,20 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
    iterations.  ``runner_2``: ``ed_overlap`` of ``prod_r4`` over
    100 steps on two gloo ranks within 0.003 of 0.99487, saved by rank 0 alone.
    With two or more cards, ``gloo_2``'s check again through NCCL, one card a
-   rank (``nccl_2``); with one card it is reported as not run.
+   rank (``nccl_2``); with one card it is reported as not run;
+13. trace: one block of 3 KFAC iterations of ``prod_r4`` under
+   ``log.profile_dir``, then one more without the profiler, and
+   ``scripts/torch_trace_summary.py`` on the trace: each hand-written
+   kernel's launches in the trace equal this script's counters over the
+   profiled window (3 x those of one local energy), the device's busy share
+   lies in (0, 1]; the idle share, the top ten kernels, the longest gaps and
+   the profiled and unprofiled iteration times are printed;
+14. magnetoroton: ``scripts/magnetoroton_torch.py`` on sector Lz = 2 of
+   ``prod_r4`` (``--chain 0 --iterations 20 --tail 5``, the default
+   one-sided selector and its purity rail): every stage finite, with the
+   launches of one local energy per iteration on the production kernels;
+   one finite ``dispersion.csv`` row with the ED anchor of the Lz = 2 block
+   (L^2 = 6); each stage's time and peak memory are printed.
 
 The line before the last is the kernel table; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -115,6 +131,7 @@ from __future__ import annotations
 
 import copy
 import hashlib
+import importlib.util
 import json
 import logging
 import math
@@ -160,6 +177,8 @@ MEAN_SHIFT_SEM = 0.05
 # kinetic energy is N/2 = 3.
 LAUGHLIN_ITERATIONS, LAUGHLIN_ENERGY, LAUGHLIN_TOL = 200, 6.87306, 0.001
 LAUGHLIN_L2, LAUGHLIN_KINETIC, KINETIC_TOL = 0.005, 3.0, 1e-3
+# The pole walkers (scripts/torch_laughlin_pole_probe.py): |KE - 3| and |L^2|.
+POLE_TOL = 1e-4
 # The Hessian and ED phases read the first walkers of prod_r4; the ED state's
 # [walkers, 338, 6, 6] complex128 determinants go through the Hessian path in
 # chunks of walkers.
@@ -185,6 +204,12 @@ STRUCTURE_FACTOR_TOL, TRACE_TOL, OCCUPATION_TOL = 0.03, 0.05, 0.03
 # against it in standard errors, the iterations of the resumed 2-rank
 # checkpoint, and each child process's time limit (s).
 DIST_ENERGY_REL, DIST_SEM, DIST_RESUME, CHILD_TIMEOUT = 1e-6, 3.0, 2, 600
+# Phase magnetoroton: scripts/magnetoroton_torch.py on one sector of prod_r4 with
+# a short budget (iterations of the planned stages, tail rows).
+ROTON_SECTOR, ROTON_ITERATIONS, ROTON_TAIL = 2, 20, 5
+# Phase trace: prod_r4's KFAC training profiled over one block of this many
+# iterations, then one more iteration without the profiler.
+TRACE_ITERATIONS = 3
 # The jet LayerNorm takes under half a millisecond, and the host's work before
 # its launch an eighth to a sixth of that (measured on an H100 host): it is
 # timed over this many calls in a row.
@@ -203,6 +228,14 @@ PEAKS = (
 
 def emit(**fields) -> None:
     print(json.dumps(fields), flush=True)
+
+
+def script_module(name: str):
+    """``scripts/<name>.py`` imported by its path (``scripts`` is no package)."""
+    spec = importlib.util.spec_from_file_location(name, REPO / "scripts" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def peaks(name: str) -> tuple[float, float, float]:
@@ -1093,6 +1126,15 @@ def phase_laughlin(workdir: Path, device) -> None:
         split = dict(sweep_ms=cuda_ms(lambda: sweep(data, float(final.mcmc_width), gen), reps=5),
                      local_energy_ms=cuda_ms(lambda: local_energy(data), reps=5))
 
+    # The pole walkers of scripts/torch_laughlin_pole_probe.py: one electron at
+    # pi - eps and at eps; the exact kinetic energy 3 and L^2 0 at every one.
+    probe = script_module("torch_laughlin_pole_probe")
+    pole = torch.from_numpy(probe.pole_walkers(walkers=2 * len(probe.POLE_EPS))).to(device)
+    with torch.no_grad():
+        _, pole_obs = local_energy(pole)
+    pole_kinetic = (pole_obs["kinetic"].real - LAUGHLIN_KINETIC).abs()
+    pole_l2 = pole_obs["angular_momentum_square"].abs()
+
     energies = np.array([row["energy"].real for row in history])
     l_square = np.array([row["angular_momentum_square"] for row in history])
     run_kinetic = np.array([row["kinetic"].real for row in history])
@@ -1110,6 +1152,9 @@ def phase_laughlin(workdir: Path, device) -> None:
         kinetic_max_deviation_theta=data[deviation.argmax(), :, 0].tolist(),
         step_time_median_ms=statistics.median(step_times) * 1e3,
         split_ms=split, wall_s=wall, peak_memory_gb=peak_gb, launches=counts,
+        pole=dict(eps=list(probe.POLE_EPS), theta=pole[:, 0, 0].tolist(),
+                  dtype=str(pole_obs["kinetic"].dtype),
+                  kinetic_deviation=pole_kinetic.tolist(), abs_l_square=pole_l2.tolist()),
     )
     emit(phase="laughlin", **result)
     values = np.concatenate([energies, l_square, run_kinetic, kinetic.cpu().numpy()])
@@ -1123,6 +1168,8 @@ def phase_laughlin(workdir: Path, device) -> None:
     for key in ("kinetic_median_walker", "kinetic_batch_mean"):
         if not abs(result[key] - LAUGHLIN_KINETIC) <= KINETIC_TOL:
             raise AssertionError(f"laughlin: {key} {result[key]} not within {KINETIC_TOL} of 3")
+    if not (pole_kinetic.max().item() <= POLE_TOL and pole_l2.max().item() <= POLE_TOL):
+        raise AssertionError(f"laughlin: a pole walker off by more than {POLE_TOL}: {result['pole']}")
     no_launches("laughlin", counts)
 
 
@@ -1653,7 +1700,7 @@ def phase_distributed(workdir: Path, train_history: list, train_counts: dict, sm
     failures, report = [], {}
 
     # nccl_1: a real NCCL group of one rank, in this process; then the cost of
-    # each collective in a new group of one.
+    # each collective in the group that the CLI joined and kept.
     launch = one_rank_launch()
     os.environ.update(launch)
     reset_counts()
@@ -1663,8 +1710,7 @@ def phase_distributed(workdir: Path, train_history: list, train_counts: dict, sm
             history, _ = train_cli(workdir / "nccl_1", "kfac", TRAIN_ITERATIONS, "--backend", "nccl")
         counts = launch_counts()
         seconds = time.perf_counter() - start
-        group_left = not torch.distributed.is_initialized()
-        os.environ["MASTER_PORT"] = one_rank_launch()["MASTER_PORT"]
+        group_kept = torch.distributed.is_initialized()
         costs = collective_costs(parallel.initialize_distributed("cuda:0", "nccl"))
         parallel.shutdown_distributed()
     finally:
@@ -1678,7 +1724,7 @@ def phase_distributed(workdir: Path, train_history: list, train_counts: dict, sm
         largest_rel_diff=float(np.max(np.abs(energies - want) / np.abs(want))),
         step_time_median_ms=statistics.median(times), step_times_ms=times,
         train_step_time_median_ms=statistics.median(row["step_time"] * 1e3 for row in train_history),
-        syncs=syncs.report(), launches=counts, group_left=group_left,
+        syncs=syncs.report(), launches=counts, group_kept=group_kept,
         collectives_per_iteration={k: v / TRAIN_ITERATIONS for k, v in collectives.counts.items()},
         collective_costs=costs,
     )
@@ -1689,8 +1735,8 @@ def phase_distributed(workdir: Path, train_history: list, train_counts: dict, sm
         failures.append(f"nccl_1: launches {counts} != phase train's {train_counts}")
     if not (syncs.blocks == TRAIN_ITERATIONS and syncs.report()["syncs_per_block"] <= 1):
         failures.append(f"nccl_1: synchronising calls {syncs.report()}")
-    if not report["nccl_1"]["group_left"]:
-        failures.append("nccl_1: the process group was not left")
+    if not report["nccl_1"]["group_kept"]:
+        failures.append("nccl_1: the CLI left its process group before the process ended")
 
     # gloo_2: two ranks on card 0, then the checkpoint resumed on one process.
     report["gloo_2"], bad = two_rank_training("gloo_2", workdir, "cuda:0", "gloo",
@@ -1740,6 +1786,126 @@ def phase_distributed(workdir: Path, train_history: list, train_counts: dict, sm
          seconds={k: v.get("seconds") for k, v in report.items()})
     if failures:
         raise AssertionError(f"distributed: {failures}")
+
+
+def phase_trace(workdir: Path, smi: str) -> dict:
+    """One profiled block of prod_r4's KFAC training, read by scripts/torch_trace_summary.py."""
+    from deephall_tpu_torch import train
+
+    trace_dir = workdir / "trace" / "profile"
+    window: dict = {}
+    stop = train.Profile.stop
+
+    def counted_stop(profile):
+        if profile.profiler is not None:  # the counters at the end of the profiled window
+            window.update(launch_counts())
+        stop(profile)
+
+    reset_counts()
+    train.Profile.stop = counted_stop
+    try:
+        history, _ = train_cli(workdir / "trace", "kfac", TRACE_ITERATIONS + 1,
+                               f"optim.block_size={TRACE_ITERATIONS}", f"log.profile_dir={trace_dir}",
+                               "log.profile_start=0", f"log.profile_steps={TRACE_ITERATIONS}")
+    finally:
+        train.Profile.stop = stop
+    trace = trace_dir / "trace.json"
+    start = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, str(REPO / "scripts" / "torch_trace_summary.py"), str(trace),
+         "--iters", str(TRACE_ITERATIONS), "--top", "10"],
+        capture_output=True, text=True, timeout=600)
+    if done.returncode != 0:
+        raise AssertionError(f"trace: the summary failed: {done.stderr[-2000:]}")
+    summary = json.loads(done.stdout.strip().splitlines()[-1])
+    per = launches_per_local_energy()
+    hand_written = ("jet_layernorm", "jet_gemm", "jet_softmax_values")
+    counted = {k: window.get(k) for k in hand_written}
+    result = dict(
+        iterations=len(history), trace_mb=trace.stat().st_size / 1e6,
+        summary_s=time.perf_counter() - start,
+        busy_share=summary["busy_share"], idle_share=summary["idle_share"],
+        window_ms=summary["window_ms"], device_busy_ms=summary["device_busy_ms"],
+        per_iteration=summary["per_iteration"], categories=summary["categories"],
+        top=summary["top"], gaps=summary["gaps"],
+        launches_in_trace=summary["hand_written_launches"], launches_counted=counted,
+        # The profiler slows the host: the profiled block's iterations beside the one after it.
+        step_time_profiled_ms=history[0]["step_time"] * 1e3,
+        step_time_unprofiled_ms=history[-1]["step_time"] * 1e3,
+    )
+    emit(phase="trace", nvidia_smi=smi, **result)
+    if len(history) != TRACE_ITERATIONS + 1 or not np.isfinite([r["energy"].real for r in history]).all():
+        raise AssertionError("trace: missing iterations or a NaN")
+    if counted != {k: TRACE_ITERATIONS * per[k] for k in hand_written}:
+        raise AssertionError(f"trace: counted launches {counted} in the profiled window")
+    if summary["hand_written_launches"] != counted:
+        raise AssertionError(f"trace: launches in the trace {summary['hand_written_launches']} "
+                             f"!= counted {counted}")
+    if not 0 < summary["busy_share"] <= 1:
+        raise AssertionError(f"trace: busy share {summary['busy_share']}")
+    return window
+
+
+def phase_magnetoroton(workdir: Path, smi: str) -> dict:
+    """The port's sector driver (scripts/magnetoroton_torch.py) on one sector of prod_r4."""
+    import csv
+
+    from deephall_tpu_torch import train
+
+    roton = script_module("magnetoroton_torch")
+    run, stages, total = train.train, [], {}
+
+    def stage(cfg, device):
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        history = run(cfg, device)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        energies = [row["energy"].real for row in history]
+        stages.append(dict(
+            iterations=len(history), steps=[history[0]["step"], history[-1]["step"]] if history else [],
+            seconds=time.perf_counter() - start,
+            lz_penalty=cfg.system.lz_penalty, l2_penalty=cfg.system.l2_penalty,
+            l2_center=cfg.system.l2_center, finite=bool(np.isfinite(energies).all()),
+            energy=float(np.mean(energies)) if energies else None,
+            l_square=float(np.mean([row["angular_momentum_square"] for row in history]))
+            if history else None,
+            launches=counts, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9))
+        return history
+
+    out = workdir / "roton"
+    train.train = stage
+    start = time.perf_counter()
+    try:
+        roton.main(["--config", str(REPO / "artifacts/prod_r4/config.yml"),
+                    "--restore", str(GROUND_STATE), "--out", str(out),
+                    "--sectors", str(ROTON_SECTOR), "--chain", "0",
+                    "--iterations", str(ROTON_ITERATIONS), "--tail", str(ROTON_TAIL),
+                    "--device", "cuda"])
+    finally:
+        train.train = run
+    seconds = time.perf_counter() - start
+    with open(out / "dispersion.csv") as f:
+        rows = list(csv.DictReader(f))
+    per = launches_per_local_energy()
+    emit(phase="magnetoroton", nvidia_smi=smi, seconds=seconds, stages=stages, dispersion=rows,
+         launches=total, peak_memory_gb=max((s["peak_memory_gb"] for s in stages), default=None))
+    if len(stages) < 3 or not all(s["iterations"] and s["finite"] for s in stages):
+        raise AssertionError(f"magnetoroton: a stage missing, empty or not finite: {stages}")
+    for s in stages:
+        want = {k: s["iterations"] * v for k, v in per.items()}
+        if s["launches"] != want:
+            raise AssertionError(f"magnetoroton: launches {s['launches']} != {want}")
+    keys = ("energy", "energy_err", "variance", "L_square", "Lz")
+    if not (len(rows) == 1 and rows[0]["sector"] == str(ROTON_SECTOR)
+            and all(math.isfinite(float(rows[0][k])) for k in keys)):
+        raise AssertionError(f"magnetoroton: dispersion.csv {rows}")
+    if rows[0]["ed_energy"] == "" or abs(float(rows[0]["ed_l2"]) - ROTON_SECTOR * (ROTON_SECTOR + 1)) > 1e-6:
+        raise AssertionError(f"magnetoroton: no ED row for Lz = {ROTON_SECTOR}: {rows[0]}")
+    return total
 
 
 def main() -> int:
@@ -1793,6 +1959,8 @@ def main() -> int:
         phase_observables(Path(workdir),
                           Path(workdir) / "laughlin" / f"ckpt_{LAUGHLIN_ITERATIONS - 1:06d}.npz", smi)
         phase_distributed(Path(workdir), train_history, train_counts, smi)
+        trace_counts = phase_trace(Path(workdir), smi)
+        roton_counts = phase_magnetoroton(Path(workdir), smi)
 
     sources = {
         "jet_layernorm": ("deephall_tpu_torch/csrc/jet_layernorm.cu", "deephall_tpu/ops/jet_layernorm.py:58"),
@@ -1807,6 +1975,8 @@ def main() -> int:
                    launches=counts[kernel], launches_train=train_counts[kernel],
                    launches_excited=excited_counts[kernel],
                    launches_hessian=hessian_counts[kernel],
+                   launches_trace=trace_counts[kernel],
+                   launches_magnetoroton=roton_counts[kernel],
                    **table_numbers(kernels[(kernel, mode)]))
         if kernel == "jet_layernorm":
             row["launches_streamed"] = counts["jet_layernorm_streamed"]

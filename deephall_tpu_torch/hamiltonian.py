@@ -73,22 +73,28 @@ def _assemble_observables(
 ) -> tuple[torch.Tensor, AngularMomenta]:
     """Kinetic energy and angular momenta of one walker from the complex
     gradient ``[N, 2]`` and Hessian ``[N, 2, N, 2]`` of ``log psi`` (the JAX
-    package's operator algebra, ``deephall_tpu/hamiltonian.py:_assemble_observables``)."""
+    package's operator algebra, ``deephall_tpu/hamiltonian.py:_assemble_observables``).
+
+    Each electron's terms in 1/sin^2(theta) are gathered before they are
+    rounded, as ``-(h_pp + (g_phi - iQ cos theta)^2) / sin^2 theta`` in both the
+    kinetic energy and L^2: at an electron at eps from a pole each of them is of
+    order Q^2 / eps^2 while their sum stays finite, so summed one by one they
+    would lose digits as 1/eps^2.
+    """
     g_theta, g_phi = grad[..., 0], grad[..., 1]
     sin_t, cos_t, tan_t = torch.sin(theta), torch.cos(theta), torch.tan(theta)
     h_tt = hess[:, 0, :, 0]
     h_tp = hess[:, 0, :, 1]
     h_pp = hess[:, 1, :, 1]
+    polar = (torch.diagonal(h_pp) + (g_phi - 1j * Q * cos_t) ** 2) / sin_t**2
 
-    square_grad_logpsi = torch.sum(g_theta**2 + g_phi**2 / sin_t**2)
-    grad_grad_logpsi = torch.sum(
-        g_theta / tan_t + torch.diagonal(h_tt) + torch.diagonal(h_pp) / sin_t**2
-    )
-    magnetic_contribution = torch.sum((Q / tan_t) ** 2 + 2j * Q * cos_t / sin_t**2 * g_phi)
-    kinetic_energy = (-grad_grad_logpsi - square_grad_logpsi + magnetic_contribution) / 2 / r**2
+    kinetic_energy = -torch.sum(
+        g_theta / tan_t + torch.diagonal(h_tt) + g_theta**2 + polar) / 2 / r**2
 
     # L^2 = sum over pairs of the angular-momentum operators' products; [3, N]
-    # Cartesian components, ``col`` / ``row`` the two electron axes.
+    # Cartesian components, ``col`` / ``row`` the two electron axes.  A pair's
+    # terms are summed over the components; each electron's own pair is
+    # -psi_tt + Q^2 - polar.
     r_hat = torch.stack([sin_t * torch.cos(phi), sin_t * torch.sin(phi), cos_t])
     phi_hat = torch.stack([-torch.sin(phi), torch.cos(phi), torch.zeros_like(phi)])
     theta_hat_prime = torch.stack(
@@ -105,14 +111,21 @@ def _assemble_observables(
     psi_tp = h_tp + col(g_theta) * row(g_phi)
     psi_pp = h_pp + col(g_phi) * row(g_phi)
     magnetic_term = Q * (theta_hat_prime * cos_t + r_hat)
-    angular_momentum_square = torch.sum(
+    pairs = torch.sum(
         2 * col(phi_hat) * row(theta_hat_prime) * psi_tp
         - col(phi_hat) * row(phi_hat) * psi_tt
         - col(theta_hat_prime) * row(theta_hat_prime) * psi_pp
         - (2j * row(magnetic_term))
         * (col(phi_hat) * col(g_theta) - col(theta_hat_prime) * col(g_phi))
-        + col(magnetic_term) * row(magnetic_term)
-    ) - torch.sum(g_theta / tan_t)  # diagonal correction for non-commuting terms
+        + col(magnetic_term) * row(magnetic_term),
+        dim=0,
+    )
+    own = torch.eye(theta.shape[-1], dtype=torch.bool, device=theta.device)
+    angular_momentum_square = (
+        torch.sum(torch.where(own, torch.zeros_like(pairs), pairs))
+        + torch.sum(Q**2 - torch.diagonal(psi_tt) - polar)
+        - torch.sum(g_theta / tan_t)  # diagonal correction for non-commuting terms
+    )
 
     return kinetic_energy, AngularMomenta(
         angular_momentum_z=torch.sum(g_phi).imag,

@@ -42,6 +42,9 @@ from deephall_tpu_torch.networks.blocks import FISHER_COTANGENT, kfac_capture
 from deephall_tpu_torch.networks.psiformer import Psiformer
 from deephall_tpu_torch.types import LossStats
 
+# The dtype of the full-Hessian local energy (every network but the Psiformer).
+HESSIAN_DTYPE = torch.float64
+
 
 def nanmean(x: torch.Tensor, dim: int | None = None) -> torch.Tensor:
     """Mean over the entries that are not NaN (either part, for complex input)
@@ -236,10 +239,19 @@ def gradient_and_capture(model, system: System, data: torch.Tensor, el, other_ob
 def batched_local_energy(model, system: System):
     """``data [B, N, 2] -> (E_L, OtherObservables)``: the forward-Laplacian jet
     for the Psiformer, the full-Hessian path under ``torch.func.vmap`` for every
-    other network (``deephall_tpu/loss.py:make_loss_fn``)."""
+    other network (``deephall_tpu/loss.py:make_loss_fn``).
+
+    The full-Hessian path runs in float64 whatever the walkers' dtype
+    (:data:`HESSIAN_DTYPE`), and its energies and observables come back in
+    float64.  Its kinetic energy and L^2 divide by powers of sin(theta): in
+    float32 an electron at eps from a pole loses digits as 1/eps^2 (the exact
+    Laughlin kinetic energy 3 read 68 at eps = 1e-4).  These networks have no
+    trainable parameters, so no gradient runs through it.
+    """
     if isinstance(model, Psiformer):
         return forward_laplacian_local_energy(model, system)
-    return torch.func.vmap(local_energy(lambda x: model(x[None])[0], system))
+    hessian = torch.func.vmap(local_energy(lambda x: model(x[None])[0], system))
+    return lambda data: hessian(data.to(HESSIAN_DTYPE))
 
 
 def make_loss_fn(model, system: System, mode: LossMode = LossMode.ENERGY_DIFF, fixed_states=None):

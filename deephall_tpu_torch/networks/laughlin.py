@@ -151,6 +151,16 @@ class Laughlin(nn.Module):
 
     def forward(self, electrons: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
         del dtype
+        if self.cf_orbitals == self.full_orbitals:
+            # det[Y_im J_i] = det(Y) prod_i J_i: the Jastrow's factors leave the
+            # determinant as a sum of logs.  The value is the same; its second
+            # derivative in phi at an electron near a pole, which the local
+            # energy divides by sin^2(theta), keeps ten times more digits.
+            u, v = spinors(electrons[..., 0], electrons[..., 1])
+            u, v = u[..., None], v[..., None]
+            element, _ = self._pair_jastrow(u, v)
+            lll = self._lll(u, v, "u", "v")[..., None, :, :]
+            return signed_logsumdet(lll) + torch.log(element).sum(dim=(-2, -1))
         # Add the determinant-expansion axis expected by signed_logsumdet.
         return signed_logsumdet(self.orbitals(electrons)[..., None, :, :])
 

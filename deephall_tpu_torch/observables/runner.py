@@ -131,17 +131,13 @@ def cli(argv: list[str] | None = None) -> dict[str, np.ndarray]:
 
     init_logging()
     device = parallel.initialize_distributed(args.device, args.backend)
-    try:
-        cfg, model, params, data, width = load_run(args.ckpt)
-        estimator_kwargs = {"state": args.ed_state} if args.estimator == "ed_overlap" else None
-        results = evaluate_observable(
-            cfg, model, params, data, width, args.estimator, args.steps, args.mcmc_steps,
-            args.seed, estimator_kwargs=estimator_kwargs, device=device,
-        )
-        writes = parallel.rank() == 0  # the accumulators are the same on every rank
-    finally:
-        parallel.shutdown_distributed()
-    if not writes:
+    cfg, model, params, data, width = load_run(args.ckpt)
+    estimator_kwargs = {"state": args.ed_state} if args.estimator == "ed_overlap" else None
+    results = evaluate_observable(
+        cfg, model, params, data, width, args.estimator, args.steps, args.mcmc_steps,
+        args.seed, estimator_kwargs=estimator_kwargs, device=device,
+    )
+    if parallel.rank() != 0:  # the accumulators are the same on every rank
         return results
     if args.out:
         np.savez(args.out, **results)

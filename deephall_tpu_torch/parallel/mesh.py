@@ -17,10 +17,17 @@ rendezvous at ``MASTER_ADDR:MASTER_PORT`` too.  The backend is NCCL on CUDA
 devices and gloo on the CPU unless the caller names one: two ranks on one card
 need gloo, because NCCL refuses them.  Both take CUDA tensors in every
 collective used here, so nothing is staged through the host.
+
+A process joins its launch's group once and keeps it until it exits: a second
+entry point called in the same process (the observables CLI once for each
+estimator, say) takes the group it finds.  Leaving and joining again at the
+same ``MASTER_ADDR:MASTER_PORT`` would race: a rank could reach the old
+rendezvous store before rank 0 had closed it, and the join then failed or hung.
 """
 
 from __future__ import annotations
 
+import atexit
 import datetime
 import logging
 import os
@@ -78,7 +85,8 @@ def initialize_distributed(
     """Join the process group that the launch announces, and return this rank's device.
 
     Without a launch (no variables of ``launch_env``) nothing is joined and the
-    device is ``device`` itself.  Joining twice returns the device again.  A
+    device is ``device`` itself.  Joining twice returns the device again.  The
+    group is left when the process exits (or by :func:`shutdown_distributed`).  A
     launch that cannot rendezvous within ``timeout`` seconds (torch's default
     when ``None``) raises: no rank carries on alone.
 
@@ -118,6 +126,7 @@ def initialize_distributed(
         raise RuntimeError(
             f"rank {rank_} of {size} could not rendezvous at {address}:{port} ({backend}): {e}"
         ) from e
+    atexit.register(shutdown_distributed)
     logger.info("Joined the process group: rank %d of %d on %s (%s)", rank_, size, device, backend)
     return device
 

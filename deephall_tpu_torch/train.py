@@ -457,10 +457,7 @@ def cli(argv: list[str] | None = None) -> list[dict]:
             config = merge_dicts(config, yaml.safe_load(f) or {})
     config = merge_dicts(config, dotlist_to_dict(args.dotlist))
     config = resolve_interpolations(config)
-    try:
-        return train(Config.from_dict(config), device=args.device, backend=args.backend)
-    finally:
-        parallel.shutdown_distributed()
+    return train(Config.from_dict(config), device=args.device, backend=args.backend)
 
 
 if __name__ == "__main__":

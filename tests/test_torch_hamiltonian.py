@@ -164,15 +164,16 @@ def test_psiformer_hessian_path_matches_jet_and_jax(flux, nspins, orbital, ndets
 
 
 def test_loss_dispatch():
-    """The jet for the Psiformer, the Hessian path for every other network; a
-    network without parameters gets an empty gradient under Adam and a
-    ``ValueError`` under KFAC, where the JAX package fails too."""
+    """The jet for the Psiformer, the Hessian path in float64 for every other
+    network; a network without parameters gets an empty gradient under Adam
+    and a ``ValueError`` under KFAC, where the JAX package fails too."""
     laughlin = config.Config.from_dict(
         {"system": {"nspins": [3, 0], "flux": 6}, "network": {"type": "laughlin"}})
     model = make_network(laughlin.system, laughlin.network)
     data = torch.from_numpy(walkers(8, 3, seed=5))
     el, obs = loss.batched_local_energy(model, laughlin.system)(data)
-    want_el, want = torch.func.vmap(hamiltonian.local_energy(model, laughlin.system))(data)
+    want_el, want = torch.func.vmap(hamiltonian.local_energy(model, laughlin.system))(
+        data.double())
     torch.testing.assert_close(el, want_el)
     torch.testing.assert_close(obs, want)
     np.testing.assert_allclose(obs["kinetic"].real.numpy(), 1.5, atol=1e-3)

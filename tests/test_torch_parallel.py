@@ -260,6 +260,31 @@ def test_failed_rendezvous_raises(tmp_path):
                 p.communicate()
 
 
+REJOIN = """
+import torch
+import torch.distributed as dist
+from deephall_tpu_torch import parallel, train
+
+parallel.initialize_distributed("cpu", timeout=60)
+group = dist.group.WORLD
+# An entry point keeps the group, and the next call in this process takes it.
+for i in range(2):
+    train.cli([*{tiny!r}, "optim.iterations=1", f"log.save_path={save}/run{{i}}", "--device", "cpu"])
+    assert dist.is_initialized() and dist.group.WORLD is group
+    assert parallel.all_reduce_sum(torch.ones(1)).item() == 2
+print("KEPT")
+"""
+
+
+def test_group_is_joined_once_and_kept(tmp_path):
+    # The CLIs keep the process group for the process's life, which leaves it
+    # at exit: leaving and joining again at the same address raced (one rank
+    # reached the old rendezvous store and failed, the other hung).
+    body = REJOIN.format(tiny=TINY, save=tmp_path)
+    outs = spawn([script(tmp_path, "rejoin.py", body)], 2)
+    assert [out.split()[-1] for _, out, _ in outs] == ["KEPT"] * 2
+
+
 # --------------------------------------------------------------------------- #
 # The whole batch: statistics, weights, gradient, KFAC moments, one sweep
 # --------------------------------------------------------------------------- #
