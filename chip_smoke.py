@@ -121,7 +121,24 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
    one-sided selector and its purity rail): every stage finite, with the
    launches of one local energy per iteration on the production kernels;
    one finite ``dispersion.csv`` row with the ED anchor of the Lz = 2 block
-   (L^2 = 6); each stage's time and peak memory are printed.
+   (L^2 = 6); each stage's time and peak memory are printed;
+15. tools: the measurement tools of ``scripts/`` at full width (N=6, 2Q=15,
+   batch 3360, bf16 sweep).  ``torch_profile_step.py`` in both modes: every
+   part's time finite and positive, the local energy launching one local
+   energy's worth of every kernel a call on the tensor-core, tiled and
+   streamed variants, the block of 10 ten times that.
+   ``torch_capture_trace.py --l2 --blocks 1`` read by
+   ``torch_trace_summary.py``: each kernel's launches in the trace 10 x one
+   local energy's, the busy share in (0, 1].  ``torch_bench_jet_attention.py``:
+   the kernel route within 2e-5 of the plain route (as phase ``kernels``);
+   ``torch_bench_sublane_layout.py``: both layouts equal after the
+   permutation.  ``torch_flops_count.py``, lean and ``--l2``, on the CPU:
+   the operations and bytes of one iteration by part and class, the rate
+   they give over the block-of-10 iteration time, and their least time at
+   the card's peaks over that time (finite, positive, at most 1).
+   ``dispersion_report_torch.py --rebuild`` on phase ``magnetoroton``'s
+   directory: sector 2's row, its ED gap equal to the port's ED (1e-9), a
+   finite purity.
 
 The line before the last is the kernel table; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -210,6 +227,8 @@ ROTON_SECTOR, ROTON_ITERATIONS, ROTON_TAIL = 2, 20, 5
 # Phase trace: prod_r4's KFAC training profiled over one block of this many
 # iterations, then one more iteration without the profiler.
 TRACE_ITERATIONS = 3
+# Phase tools: the iterations of the block the tools time and trace.
+TOOLS_BLOCK = 10
 # The jet LayerNorm takes under half a millisecond, and the host's work before
 # its launch an eighth to a sixth of that (measured on an H100 host): it is
 # timed over this many calls in a row.
@@ -353,7 +372,6 @@ def phase_kernels(device, rates) -> dict:
         planes = c + e + 2
         rows = BATCH * TOKENS
         elems = planes * rows * FEAT
-        dh = FEAT // HEADS
         mode = f"C{c}E{e}"
 
         t = random_jet(gen, c, e, device)
@@ -397,18 +415,14 @@ def phase_kernels(device, rates) -> dict:
         del r
 
         p = attention_params(gen, device)
-        # Dot products of dh terms per (walker, head, query, source) in the
-        # logits and in the value contraction: 1 for x, 2 per tangent, 2 + lap
-        # for l, 3 per extra.
-        core_flops = 2 * 2 * dh * TOKENS**2 * BATCH * HEADS * (1 + 2 * c + 2 + (c - e) + 3 * e)
-        proj_flops = 4 * 2 * elems * FEAT
+        att_bytes, core_flops, proj_flops = ja.attention_work(BATCH, TOKENS, FEAT, HEADS, c, e)
         err = compare(
             f"jet_attention {mode}",
             tuple(ja.attention_jet(p, HEADS, t)),
             tuple(ja.attention_jet_plain(p, HEADS, t)),
             KERNEL_TOL,
         )
-        att_bound = bound(2 * elems * 4 + 4 * (FEAT * FEAT + FEAT) * 4, core_flops, rates, proj_flops)
+        att_bound = bound(att_bytes, core_flops, rates, proj_flops)
         results[("jet_attention", mode)] = against(dict(
             **err,
             ms=cuda_ms(lambda: ja.attention_jet(p, HEADS, t)),
@@ -472,29 +486,15 @@ def table_numbers(row: dict) -> dict:
 
 
 def launch_counts() -> dict:
-    from deephall_tpu_torch.ops import jet_attention as ja
-    from deephall_tpu_torch.ops import jet_layernorm as jl
+    from deephall_tpu_torch.ops import launch_counts as counts
 
-    return {
-        "jet_layernorm": jl.layernorm_jet.launches,
-        "jet_attention": ja.attention_jet.launches,
-        "jet_gemm": ja.jet_gemm.launches,
-        "jet_softmax_values": ja.softmax_values.launches,
-        "jet_gemm_tensor_core": ja.jet_gemm.launches_tensor_core,
-        "jet_softmax_values_tiled": ja.softmax_values.launches_tiled,
-        "jet_layernorm_streamed": jl.layernorm_jet.launches_streamed,
-    }
+    return counts()
 
 
 def reset_counts() -> None:
-    from deephall_tpu_torch.ops import jet_attention as ja
-    from deephall_tpu_torch.ops import jet_layernorm as jl
+    from deephall_tpu_torch.ops import reset_launch_counts
 
-    for fn in (jl.layernorm_jet, ja.attention_jet, ja.jet_gemm, ja.softmax_values):
-        fn.launches = 0
-    ja.jet_gemm.launches_tensor_core = 0
-    ja.softmax_values.launches_tiled = 0
-    jl.layernorm_jet.launches_streamed = 0
+    reset_launch_counts()
 
 
 def phase_slice(workdir: Path) -> dict:
@@ -1788,6 +1788,17 @@ def phase_distributed(workdir: Path, train_history: list, train_counts: dict, sm
         raise AssertionError(f"distributed: {failures}")
 
 
+def trace_summary(trace: Path, iterations: int) -> dict:
+    """``scripts/torch_trace_summary.py`` on ``trace``: its JSON line."""
+    done = subprocess.run(
+        [sys.executable, str(REPO / "scripts" / "torch_trace_summary.py"), str(trace),
+         "--iters", str(iterations), "--top", "10"],
+        capture_output=True, text=True, timeout=600)
+    if done.returncode != 0:
+        raise AssertionError(f"the trace summary failed: {done.stderr[-2000:]}")
+    return json.loads(done.stdout.strip().splitlines()[-1])
+
+
 def phase_trace(workdir: Path, smi: str) -> dict:
     """One profiled block of prod_r4's KFAC training, read by scripts/torch_trace_summary.py."""
     from deephall_tpu_torch import train
@@ -1811,13 +1822,7 @@ def phase_trace(workdir: Path, smi: str) -> dict:
         train.Profile.stop = stop
     trace = trace_dir / "trace.json"
     start = time.perf_counter()
-    done = subprocess.run(
-        [sys.executable, str(REPO / "scripts" / "torch_trace_summary.py"), str(trace),
-         "--iters", str(TRACE_ITERATIONS), "--top", "10"],
-        capture_output=True, text=True, timeout=600)
-    if done.returncode != 0:
-        raise AssertionError(f"trace: the summary failed: {done.stderr[-2000:]}")
-    summary = json.loads(done.stdout.strip().splitlines()[-1])
+    summary = trace_summary(trace, TRACE_ITERATIONS)
     per = launches_per_local_energy()
     hand_written = ("jet_layernorm", "jet_gemm", "jet_softmax_values")
     counted = {k: window.get(k) for k in hand_written}
@@ -1908,6 +1913,179 @@ def phase_magnetoroton(workdir: Path, smi: str) -> dict:
     return total
 
 
+def quiet(fn, *args):
+    """``fn(*args)`` with its printed lines kept: ``(result, lines)``."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = fn(*args)
+    return result, out.getvalue().splitlines()
+
+
+def flops_counts() -> dict:
+    """``scripts/torch_flops_count.py``, lean and ``--l2``, on the CPU, both at once:
+    ``{mode: its JSON line}``."""
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": str(max(os.cpu_count() // 2, 1))}
+    runs = {mode: subprocess.Popen(
+        [sys.executable, str(REPO / "scripts" / "torch_flops_count.py"), *flags],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for mode, flags in (("lean", ()), ("l2", ("--l2",)))}
+    out = {}
+    try:
+        for mode, run in runs.items():
+            stdout, stderr = run.communicate(timeout=600)
+            if run.returncode != 0:
+                raise AssertionError(f"tools: torch_flops_count.py {mode} failed: {stderr[-2000:]}")
+            lines = stdout.strip().splitlines()
+            out[mode] = {**json.loads(lines[-1]), "lines": lines[:-1]}
+    finally:
+        for run in runs.values():
+            run.kill()
+            run.wait()
+    return out
+
+
+def sector_gap_ed(nelec: int, flux: int, m: int) -> float:
+    """The exact gap of the ``L = m`` member of the ``Lz = m`` block over the
+    ``Lz = 0`` ground state, from the port's ED."""
+    from deephall_tpu_torch.observables import ed
+
+    e0 = float(ed.ed_block(nelec, flux, two_lz=0, num_states=2).energies[0])
+    block = ed.ed_block(nelec, flux, two_lz=2 * m, num_states=8)
+    for k, energy in enumerate(block.energies):
+        if abs(ed.state_l2(block, flux, k) - m * (m + 1)) < 0.5:
+            return float(energy) - e0
+    raise AssertionError(f"no L = {m} state in the Lz = {m} block")
+
+
+def tools_profile(report: dict, failures: list) -> None:
+    """``torch_profile_step.py`` in both modes: every part finite and positive,
+    the local energy one local energy's launches a call, the block 10 times that."""
+    per = launches_per_local_energy()
+    profile = script_module("torch_profile_step")
+    for mode, flags in (("l2", []), ("lean", ["--fast"])):
+        result, lines = quiet(profile.main, ["--device", "cuda", *flags])
+        parts = {row["part"]: row for row in result["parts"]}
+        report[f"profile_{mode}"] = dict(lines=lines, parts=parts)
+        bad = [k for k, row in parts.items() if not (math.isfinite(row["ms"]) and row["ms"] > 0)]
+        if bad:
+            failures.append(f"profile {mode}: parts {bad} not finite and positive")
+        if parts["local_energy"]["launches"] != per:
+            failures.append(f"profile {mode}: the local energy launched {parts['local_energy']['launches']}")
+        if parts["block"]["launches"] != {k: TOOLS_BLOCK * v for k, v in per.items()}:
+            failures.append(f"profile {mode}: the block launched {parts['block']['launches']}")
+
+
+def tools_trace(workdir: Path, report: dict, failures: list) -> None:
+    """``torch_capture_trace.py --l2 --blocks 1`` read by the trace summary:
+    10 x one local energy's launches of each kernel, the busy share in (0, 1]."""
+    per = launches_per_local_energy()
+    capture = script_module("torch_capture_trace")
+    trace, _ = quiet(capture.main, ["--out", str(workdir / "tools_trace"), "--l2", "--blocks", "1"])
+    summary = trace_summary(trace, TOOLS_BLOCK)
+    report["trace"] = dict(
+        trace_mb=trace.stat().st_size / 1e6, busy_share=summary["busy_share"],
+        idle_share=summary["idle_share"], window_ms=summary["window_ms"],
+        device_busy_ms=summary["device_busy_ms"], per_iteration=summary["per_iteration"],
+        launches_in_trace=summary["hand_written_launches"], top=summary["top"][:5])
+    want = {k: TOOLS_BLOCK * per[k] for k in ("jet_layernorm", "jet_gemm", "jet_softmax_values")}
+    if summary["hand_written_launches"] != want:
+        failures.append(f"trace: launches {summary['hand_written_launches']} != {want}")
+    if not 0 < summary["busy_share"] <= 1:
+        failures.append(f"trace: busy share {summary['busy_share']}")
+
+
+def tools_benches(device, report: dict, failures: list) -> None:
+    """The two microbenchmarks: the attention's kernel route within the kernel
+    tolerance of its plain route, both layouts equal after the permutation."""
+    bench = script_module("torch_bench_jet_attention")
+    routes = bench.run(["kernel", "plain"], BATCH, device, 10)
+    report["bench_jet_attention"] = routes
+    bad = {k: v["max_rel_err"] for k, v in routes.items() if not v["max_rel_err"] <= KERNEL_TOL}
+    if bad:
+        failures.append(f"bench_jet_attention: routes off the plain route {bad}")
+    layout = script_module("torch_bench_sublane_layout")
+    layouts = layout.run(layout.SHAPE, device, 10)
+    report["bench_sublane_layout"] = layouts
+    if not layouts["max_abs_diff"] <= 1e-6 * layouts["max_abs"]:
+        failures.append(f"bench_sublane_layout: the layouts differ by {layouts['max_abs_diff']}")
+    torch.cuda.empty_cache()
+
+
+def tools_count(report: dict, failures: list) -> None:
+    """``torch_flops_count.py`` lean and ``--l2`` on the CPU, over the block-of-10
+    iteration time of the step split: the rate, and the least time's share."""
+    for mode, count in flops_counts().items():
+        iteration_ms = report[f"profile_{mode}"]["parts"]["block"]["ms"]
+        row = dict(
+            flops=count["flops"], transcendentals=count["transcendentals"], bytes=count["bytes"],
+            by_class=count["by_class"],
+            parts={k: {f: v[f] for f in ("flops", "transcendentals", "bytes", "by_class")}
+                   for k, v in count["parts"].items()},
+            iteration_ms=iteration_ms,
+            achieved_tflops=count["flops"] / (iteration_ms * 1e-3) / 1e12,
+            operations_ms=count["operations_ms"], bytes_unfused_ms=count["bytes_ms"],
+            operations_share=count["operations_ms"] / iteration_ms,
+            bytes_unfused_share=count["bytes_ms"] / iteration_ms, lines=count["lines"])
+        report["flops_count"][mode] = row
+        numbers = (row["achieved_tflops"], row["operations_share"], row["bytes_unfused_share"])
+        if not all(math.isfinite(v) and v > 0 for v in numbers) or not row["operations_share"] <= 1:
+            failures.append(f"flops_count {mode}: rate or share out of range {numbers}")
+
+
+def tools_dispersion(workdir: Path, report: dict, failures: list) -> None:
+    """``dispersion_report_torch.py --rebuild`` on phase magnetoroton's directory:
+    sector 2's row, its ED gap equal to the port's ED (1e-9), a finite purity."""
+    dispersion = script_module("dispersion_report_torch")
+    entries, lines = quiet(dispersion.main, [
+        str(workdir / "roton"), "--rebuild", "--tail", str(ROTON_TAIL), "--nelec", "6",
+        "--flux", "15", "--ground-energy", str(ANCHOR_ENERGY)])
+    want = sector_gap_ed(6, 15, ROTON_SECTOR)
+    rows = [e for e in entries if e["L"] == ROTON_SECTOR]
+    report["dispersion_report"] = dict(lines=lines, entries=entries, gap_ed_from_ed=want)
+    if not rows or abs(rows[0].get("gap_ed", math.nan) - want) > 1e-9 or not math.isfinite(rows[0]["purity"]):
+        failures.append(f"dispersion_report: sector {ROTON_SECTOR} {rows} against gap_ed {want}")
+
+
+def phase_tools(workdir: Path, smi: str) -> dict:
+    """The measurement tools of scripts/ at full width; returns the launches of
+    their main path (the step split and the trace).  Every tool runs even when
+    one before it failed, and the phase's line reports them all."""
+    import traceback
+
+    device = torch.device("cuda", 0)
+    start = time.perf_counter()
+    failures: list = []
+    report: dict = {"flops_count": {}}
+    tools_counts: dict = {}
+
+    def guarded(name: str, fn, *args) -> None:
+        try:
+            fn(*args, report, failures)
+        except Exception:  # noqa: BLE001 - recorded and raised after the phase's line
+            failures.append(f"{name}: {traceback.format_exc()[-1500:]}")
+
+    reset_counts()
+    guarded("profile", tools_profile)
+    guarded("trace", tools_trace, workdir)
+    tools_counts.update(launch_counts())
+    guarded("benches", tools_benches, device)
+    guarded("count", tools_count)
+    guarded("dispersion", tools_dispersion, workdir)
+    emit(phase="tools", nvidia_smi=smi, seconds=time.perf_counter() - start,
+         launches=tools_counts, failures=failures, **report)
+    for mode, row in report["flops_count"].items():
+        print(f"tools: {mode} iteration {row['flops'] / 1e12:.4f} TFLOP counted, "
+              f"{row['achieved_tflops']:.3f} TFLOP/s over {row['iteration_ms']:.2f} ms, least time "
+              f"at the peaks {row['operations_ms']:.3f} ms = {100 * row['operations_share']:.2f}% "
+              f"(unfused bytes {row['bytes_unfused_ms']:.2f} ms) on {smi}", flush=True)
+    if failures:
+        raise AssertionError(f"tools: {failures}")
+    return tools_counts
+
+
 def main() -> int:
     if len(sys.argv) > 2 and sys.argv[1] == "--rank-child":
         return rank_child(sys.argv[2], sys.argv[3:])
@@ -1961,6 +2139,7 @@ def main() -> int:
         phase_distributed(Path(workdir), train_history, train_counts, smi)
         trace_counts = phase_trace(Path(workdir), smi)
         roton_counts = phase_magnetoroton(Path(workdir), smi)
+        tools_counts = phase_tools(Path(workdir), smi)
 
     sources = {
         "jet_layernorm": ("deephall_tpu_torch/csrc/jet_layernorm.cu", "deephall_tpu/ops/jet_layernorm.py:58"),
@@ -1977,6 +2156,7 @@ def main() -> int:
                    launches_hessian=hessian_counts[kernel],
                    launches_trace=trace_counts[kernel],
                    launches_magnetoroton=roton_counts[kernel],
+                   launches_tools=tools_counts[kernel],
                    **table_numbers(kernels[(kernel, mode)]))
         if kernel == "jet_layernorm":
             row["launches_streamed"] = counts["jet_layernorm_streamed"]

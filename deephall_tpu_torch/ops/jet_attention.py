@@ -236,6 +236,22 @@ def attention_jet_plain(p: dict, num_heads: int, t: Jet) -> Jet:
     )
 
 
+def attention_work(batch: int, tokens: int, features: int, heads: int, c: int, e: int):
+    """``(bytes, core_products, projection_products)`` of one attention layer
+    on a jet of ``c`` tangent channels, ``e`` of them extra: the jet read and
+    written once with the four weights (float32), the products of the logits
+    and value contractions, and those of the q/k/v and output projections,
+    each ``2 m n k``.  The kernel table's and the benchmark's bound."""
+    elems = (c + e + 2) * batch * tokens * features
+    dh = features // heads
+    # Dot products of dh terms per (walker, head, query, source) in the
+    # logits and in the value contraction: 1 for x, 2 per tangent, 2 + lap
+    # for l, 3 per extra.
+    core = 2 * 2 * dh * tokens**2 * batch * heads * (1 + 2 * c + 2 + (c - e) + 3 * e)
+    nbytes = 2 * elems * 4 + 4 * (features * features + features) * 4
+    return nbytes, core, 4 * 2 * elems * features
+
+
 def packed_planes(t: Jet) -> torch.Tensor | None:
     """The ``[P, *S]`` buffer whose adjacent slices are ``t``'s fields, if there is one."""
     fields = list(t)

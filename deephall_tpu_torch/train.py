@@ -40,6 +40,7 @@ import sys
 import time
 from argparse import ArgumentParser
 from pathlib import Path
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -173,6 +174,40 @@ def make_iteration_block(cfg: Config, mcmc_step, training_step):
     return block
 
 
+class Program(NamedTuple):
+    """What a run executes on its walkers, as :func:`train` builds it."""
+
+    mcmc_step: Callable  # (data, width, generator) -> (data, pmove)
+    opt_init: Callable  # (model, data) -> a fresh optimizer state
+    training_step: Callable  # (state, penalties=None) -> (state, stats)
+    block: Callable  # make_iteration_block over both, drawing from the run's generator
+
+
+def run_generator(cfg: Config, device) -> torch.Generator:
+    """The run's one generator, seeded from ``cfg.seed``: the walkers, then every sweep."""
+    generator = torch.Generator(device=device)
+    generator.manual_seed(cfg.seed)
+    return generator
+
+
+def fresh_walkers(cfg: Config, model, generator: torch.Generator, device) -> torch.Tensor:
+    """A fresh run's start: ``model``'s parameters from ``cfg.seed`` (in place)
+    and the walkers drawn from ``generator``."""
+    init_params(model, torch.Generator().manual_seed(cfg.seed))
+    return init_guess(generator, cfg.batch_size, sum(cfg.system.nspins), device)
+
+
+def make_program(cfg: Config, model, generator: torch.Generator, fixed_states=None) -> Program:
+    """The sweep (its tower in :func:`sweep_dtype`), the optimizer's init and
+    training step, and the iteration block over both, drawing from ``generator``."""
+    dtype = sweep_dtype()
+    mcmc_step = mcmc.make_mcmc_step(lambda x: model(x, dtype), steps=cfg.mcmc.steps)
+    opt_init, training_step = optimizers.make_optimizer_step(cfg, model, fixed_states)
+    block = make_iteration_block(
+        cfg, lambda x, width: mcmc_step(x, width, generator), training_step)
+    return Program(mcmc_step, opt_init, training_step, block)
+
+
 def host_rows(stats: dict, pmove: torch.Tensor) -> list[dict]:
     """A block's statistics as one row of host numbers per iteration, read in one copy."""
     columns, layout = [], []
@@ -276,9 +311,7 @@ def train(cfg: Config, device: str | torch.device = "cuda", backend: str | None 
         raise ValueError(f"batch_size={cfg.batch_size} must be divisible by {ranks} ranks")
     log_manager = LogManager(cfg, write_artifacts=parallel.rank() == 0,
                              now=run_start(cfg, device))
-    nelec = sum(cfg.system.nspins)
-    generator = torch.Generator(device=device)
-    generator.manual_seed(cfg.seed)
+    generator = run_generator(cfg, device)
     model = make_network(cfg.system, cfg.network)
 
     restored = log_manager.try_restore_checkpoint()
@@ -291,9 +324,8 @@ def train(cfg: Config, device: str | torch.device = "cuda", backend: str | None 
         mcmc_width = float(state.mcmc_width)
     else:
         initial_step = 0
-        init_params(model, torch.Generator().manual_seed(cfg.seed))
         opt_state = None
-        data = init_guess(generator, cfg.batch_size, nelec, device)
+        data = fresh_walkers(cfg, model, generator, device)
         mcmc_width = float(cfg.mcmc.width)
     model.to(device)
     params = list(model.parameters())
@@ -311,12 +343,10 @@ def train(cfg: Config, device: str | torch.device = "cuda", backend: str | None 
     ):  # Inference on a restored run is a fresh run: reset the step counter.
         initial_step = 0
 
-    dtype = sweep_dtype()
-    mcmc_step = mcmc.make_mcmc_step(lambda x: model(x, dtype), steps=cfg.mcmc.steps)
     fixed_states = load_fixed_states(cfg, device)
-    opt_init, training_step = optimizers.make_optimizer_step(cfg, model, fixed_states)
+    program = make_program(cfg, model, generator, fixed_states)
     if opt_state is None:
-        opt_state = opt_init(model, data)
+        opt_state = program.opt_init(model, data)
     else:
         opt_state = optimizers.state_to(opt_state, device)
     logger.info("Start VMC on %s, rank %d of %d",
@@ -326,7 +356,7 @@ def train(cfg: Config, device: str | torch.device = "cuda", backend: str | None 
     with torch.no_grad():
         if initial_step == 0:
             for _ in range(cfg.mcmc.burn_in):
-                data, _ = mcmc_step(data, mcmc_width, generator)
+                data, _ = program.mcmc_step(data, mcmc_width, generator)
             logger.info("Burn in MCMC complete")
             if cfg.log.initial_energy:
                 probe = make_loss_fn(model, cfg.system, LossMode.ENERGY_DIFF, fixed_states)
@@ -341,8 +371,6 @@ def train(cfg: Config, device: str | torch.device = "cuda", backend: str | None 
         pmoves = np.zeros(cfg.mcmc.adapt_frequency, dtype=np.float32)
     pmoves = torch.tensor(np.asarray(pmoves, dtype=np.float32), device=device)
     t = torch.tensor(int(adapt_restored.get("t", 0)), dtype=torch.int32, device=device)
-    block = make_iteration_block(
-        cfg, lambda x, width: mcmc_step(x, width, generator), training_step)
     block_size = max(1, cfg.optim.block_size)
     profile = Profile(cfg, device)
 
@@ -360,7 +388,7 @@ def train(cfg: Config, device: str | torch.device = "cuda", backend: str | None 
                 length = min(block_size, cfg.optim.iterations - step)
                 profile.before_block(step - initial_step, length)
                 start = time.perf_counter()
-                state, pmoves, t, stats, pmove = block(state, pmoves, t, length, penalties)
+                state, pmoves, t, stats, pmove = program.block(state, pmoves, t, length, penalties)
                 flags = {}
                 if grouped:
                     both = save_flags(

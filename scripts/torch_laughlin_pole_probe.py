@@ -3,6 +3,8 @@
 
     python3 scripts/torch_laughlin_pole_probe.py [--device cpu]
 
+It runs on the card unless ``--device cpu`` is given, and fails without one.
+
 The Laughlin state is a lowest-Landau-level L^2 = 0 eigenstate, so every
 walker's local kinetic energy is N Q / (2 R^2) = 3 and its local L^2 is 0.
 Both divide by powers of sin(theta).  For one electron at theta = pi - eps or
@@ -27,6 +29,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from deephall_tpu_torch import hamiltonian, loss  # noqa: E402
 from deephall_tpu_torch.config import Config  # noqa: E402
 from deephall_tpu_torch.networks import make_network  # noqa: E402
+from deephall_tpu_torch.utils import resolve_device  # noqa: E402
 
 POLE_EPS = (1e-3, 1e-4, 1e-5)  # the distances that the gates take
 EPS = (1e-1, 1e-2, *POLE_EPS, 1e-6)
@@ -53,14 +56,15 @@ def pole_walkers(eps=POLE_EPS, walkers: int = 64, seed: int = 0) -> np.ndarray:
     return np.stack([theta, phi], -1).astype(np.float32)
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--device", default="cpu")
+    parser.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     parser.add_argument("--walkers", type=int, default=64)
-    args = parser.parse_args()
+    args = parser.parse_args(argv)
+    device = resolve_device(args.device)
     cfg, model = laughlin()
-    model = model.to(args.device)
-    data = torch.from_numpy(pole_walkers(EPS, args.walkers)).to(args.device)
+    model = model.to(device)
+    data = torch.from_numpy(pole_walkers(EPS, args.walkers)).to(device)
     float32 = torch.func.vmap(hamiltonian.local_energy(lambda x: model(x[None])[0], cfg.system))
     with torch.no_grad():
         _, f32 = float32(data)

@@ -347,6 +347,11 @@ for name in ("adaptor", "observables.density", "observables.pair_corr", "observa
     importlib.import_module("deephall_tpu_torch.netobs_bridge." + name)
 sys.path.insert(0, "scripts")
 import chip_smoke, magnetoroton_torch, torch_laughlin_pole_probe, torch_trace_summary
+import dispersion_report_torch, torch_bench_jet_attention, torch_bench_sublane_layout
+import torch_capture_trace, torch_flops_count, torch_production_block, torch_profile_step
+torch_production_block.build_production_block(False, 1, "cpu", batch=4, nelec=3, flux=4,
+                                              num_layers=1, num_heads=1, heads_dim=4)
+dispersion_report_torch.sector_ed_anchor(3, 6, 1)
 magnetoroton_torch.plan_phases(0, 1.0, 1.0, 0, 100, one_sided=True, m=2)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "deephall_tpu"))
@@ -357,8 +362,9 @@ print("CLEAN")
 
 def test_new_modules_import_no_jax():
     # The bridge (under a minimal netobs stub), the sector driver, the trace
-    # summary, the pole probe and chip_smoke.py import nothing of JAX or of
-    # the JAX package.
+    # summary, the pole probe, the measurement tools (a production block built,
+    # an ED anchor found) and chip_smoke.py import nothing of JAX or of the
+    # JAX package.
     out = subprocess.run([sys.executable, "-c", NO_JAX], cwd=REPO, capture_output=True,
                          text=True, timeout=300, env={**os.environ, "PYTHONPATH": str(REPO)})
     assert out.returncode == 0 and out.stdout.split() == ["CLEAN"], out.stderr
