@@ -22,7 +22,13 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
    kernel built for this shape (tensor cores, tiled, streamed);
 5. end to end: local energy and observables of the 3360 stored walkers through
    the kernels and through the plain versions, on the card; the batch means
-   and the median walker must agree to 1e-4 of each observable's RMS;
+   and the median walker must agree to 1e-4 of each observable's RMS.  Then
+   phase ``psiformer_pole``: the walkers of
+   ``scripts/torch_psiformer_pole_probe.py`` (electron 0 of stored walkers at
+   float32 pi, 0 and 3.45e-4, 1e-3, 1e-2 from either pole; 8 ordinary ones)
+   through the kernels in float32 against the plain route in float64: at
+   every pole walker KE and E_L within 2e-3, L^2 within 5e-3, Lz within
+   1e-3, all finite, and one local energy's launches;
 6. train: the training CLI resumes ``prod_r4`` under KFAC with its stored
    curvature (step 20000 on entry, 20010 on exit) for 10 iterations at batch
    3360, L^2 on, bf16 sweep; the mean energy must lie within 0.005 of 6.8681
@@ -153,7 +159,6 @@ import json
 import logging
 import math
 import os
-import socket
 import statistics
 import subprocess
 import sys
@@ -626,6 +631,41 @@ def phase_end_to_end(device) -> None:
          fields=report, **timing)
     if bad:
         raise AssertionError(f"end_to_end: {bad} differ by more than {END_TO_END_TOL}")
+
+
+def phase_psiformer_pole(device) -> dict:
+    """The Psiformer's jet local energy with an electron at or near a pole.
+
+    The walkers of ``scripts/torch_psiformer_pole_probe.py:pole_walkers``
+    (``prod_r4``'s stored walkers with electron 0 at float32 pi, pi - 3.45e-4,
+    pi - 1e-3, pi - 1e-2 twice, 3.45e-4, 1e-3, 1e-2 and 0, then 8 ordinary
+    ones) through the kernels in float32, against the plain route with the
+    model and walkers in float64, both on the card: every pole walker finite
+    and within the probe's ``GATE``, and one local energy's launches.
+    """
+    probe = script_module("torch_psiformer_pole_probe")
+    cfg, model, stored = probe.prod_r4()
+    model = model.to(device)
+    data = torch.from_numpy(probe.pole_walkers(stored)).to(device)
+    reset_counts()
+    f32 = probe.evaluate(model, cfg.system, data, kernels=True)
+    counts = launch_counts()
+    f64 = probe.evaluate(copy.deepcopy(model).double(), cfg.system, data.double(), kernels=False)
+    for i in range(len(probe.POLE_THETA)):
+        print(f"psiformer_pole: theta_0 {data[i, 0, 0].item():.8f} kinetic {f32['kinetic'][i]:.6f} "
+              f"({f64['kinetic'][i]:.6f} float64) L^2 {f32['angular_momentum_square'][i]:.6f} "
+              f"({f64['angular_momentum_square'][i]:.6f} float64)", flush=True)
+    failures = probe.gate_failures(f32, f64)
+    expected = launches_per_local_energy(cfg.network.psiformer.num_layers)
+    emit(phase="psiformer_pole", theta=data[:, 0, 0].tolist(), gate=probe.GATE,
+         float32={k: v.tolist() for k, v in f32.items()},
+         float64={k: v.tolist() for k, v in f64.items()},
+         launches=counts, expected_launches=expected, failures=failures)
+    if failures:
+        raise AssertionError(f"psiformer_pole: pole walkers outside the gate: {failures}")
+    if counts != expected:
+        raise AssertionError(f"psiformer_pole: launch counts {counts} != expected {expected}")
+    return counts
 
 
 class WarningLog(logging.Filter):
@@ -1413,12 +1453,6 @@ def phase_observables(workdir: Path, laughlin_ckpt: Path, smi: str) -> None:
         raise AssertionError(f"observables: {failures}")
 
 
-def free_port() -> int:
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
-
-
 def copied(v):
     """``v`` with every tensor in it cloned (tuples, named tuples, dicts)."""
     if isinstance(v, torch.Tensor):
@@ -1529,7 +1563,9 @@ def spawn_ranks(kind: str, argv: list[str], ranks: int, device: str,
                 backend: str) -> list[tuple[dict, str]]:
     """``ranks`` child processes of this script as one torchrun-style launch;
     returns each rank's JSON line and its standard error."""
-    port = free_port()
+    from deephall_tpu_torch import parallel
+
+    port = parallel.rendezvous_port()
     procs = []
     for rank in range(ranks):
         env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(ranks), LOCAL_RANK=str(rank),
@@ -1683,8 +1719,10 @@ def collective_costs(device, calls: int = 200) -> list[dict]:
 
 
 def one_rank_launch() -> dict:
+    from deephall_tpu_torch import parallel
+
     return dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
-                MASTER_PORT=str(free_port()))
+                MASTER_PORT=str(parallel.rendezvous_port()))
 
 
 def phase_distributed(workdir: Path, train_history: list, train_counts: dict, smi: str) -> None:
@@ -2127,6 +2165,7 @@ def main() -> int:
         counts = phase_slice(Path(workdir))
         phase_slice_excited(Path(workdir))
         phase_end_to_end(device)
+        pole_counts = phase_psiformer_pole(device)
         train_counts, train_history = phase_train(Path(workdir), device)
         excited_counts = phase_excited(Path(workdir))
         start = time.perf_counter()
@@ -2154,6 +2193,7 @@ def main() -> int:
                    launches=counts[kernel], launches_train=train_counts[kernel],
                    launches_excited=excited_counts[kernel],
                    launches_hessian=hessian_counts[kernel],
+                   launches_psiformer_pole=pole_counts[kernel],
                    launches_trace=trace_counts[kernel],
                    launches_magnetoroton=roton_counts[kernel],
                    launches_tools=tools_counts[kernel],

@@ -23,6 +23,7 @@ import torch
 
 from deephall_tpu_torch.config import InteractionType, System
 from deephall_tpu_torch.geometry import pairwise_cos
+from deephall_tpu_torch.ops.fwdlap import hemisphere
 from deephall_tpu_torch.types import AngularMomenta, OtherObservables
 
 
@@ -193,15 +194,26 @@ def local_energy(f, system: System):
 def forward_laplacian_local_energy(model, system: System, kernels: bool = True):
     """Batched local energy from one forward-Laplacian pass.
 
-    With ``compute_l2`` (or an ``l2_penalty``) two more jet directions are carried
-    and
+    The jet (:func:`psiformer_logpsi_jet`) is of ``log psi' = log psi -
+    i Q sum_i s_i phi_i``, each electron in the gauge regular at its nearer
+    pole (``s_i = fwdlap.hemisphere(theta_i)``), along unit geodesics for the
+    Laplacian and rotation flows for the angular momenta, so that no term
+    larger than O(Q^2) is formed and then cancelled (near a pole the
+    symmetric gauge's ``(Q / tan theta)^2`` terms cancel in float32).  In that
+    gauge the vector potential along ``e_phi`` is
+    ``A_i = -Q s_i sin theta_i / (1 + s_i cos theta_i)``, and
 
-        L^2 = sum_a [ -u_a^T H u_a - G_a^2 - 2i Mbar_a G_a + Mbar_a^2 ]
-              - sum_i g_theta_i / tan theta_i
+        KE  = -1/(2 r^2) sum_i [ Lap_i log psi' + g_theta_i^2 + (g_phi_i - i A_i)^2 ]
+        L_a = sum_i (-i D_a + M_a(X_i)),   M_x = Q x / (1 + s z),
+              M_y = Q y / (1 + s z),       M_z = Q s
 
-    with ``G_a`` and ``u_a^T H u_a`` read from the jet and
-    ``Mbar_a = sum_i Q (thetahat'_a cos theta + rhat_a)_i`` analytic.  Otherwise
-    ``L_square`` is NaN.
+    with ``g`` the derivatives along ``e_theta``, ``e_phi`` and ``D_a`` the
+    rotation about axis ``a``.  So ``Lz = Im G_z + M_z`` and, the imaginary
+    ``-i D_a M_a`` dropped with the real part,
+    ``L^2 = sum_a Re[-D_a^2 - G_a^2 - 2i M_a G_a + M_a^2]`` (``G_a``,
+    ``D_a^2`` the first and second derivatives of ``log psi'`` along the
+    rotation).  Without ``compute_l2`` (or an ``l2_penalty``) ``L_square`` is
+    NaN.
 
     Args:
         model: the Psiformer.
@@ -221,44 +233,35 @@ def forward_laplacian_local_energy(model, system: System, kernels: bool = True):
     def e_l(data: torch.Tensor) -> tuple[torch.Tensor, OtherObservables]:
         out = psiformer_logpsi_jet(model, data, compute_l2=compute_l2, kernels=kernels)
         theta, phi = data[..., 0], data[..., 1]
-        sin_t, cos_t, tan_t = torch.sin(theta), torch.cos(theta), torch.tan(theta)
+        sin_t, cos_t = torch.sin(theta), torch.cos(theta)
+        s = hemisphere(theta)
         n = data.shape[-2]
 
         # Seed order (fwdlap.electron_seeds): row 2i is e_theta_i, row 2i+1 is
-        # e_phi_i / sin(theta_i); the extra rows follow.
+        # e_phi_i; the extra rows follow.
         jc = out.j_lap.reshape(n, 2, *out.x.shape)
         g_theta = torch.movedim(jc[:, 0], 0, -1)  # [*B, N]
-        g_phi = torch.movedim(jc[:, 1], 0, -1) * sin_t
+        g_phi = torch.movedim(jc[:, 1], 0, -1)
+        a_phi = -Q * s * sin_t / (1 + s * cos_t)
+        kinetic = -(out.l + torch.sum(g_theta**2 + (g_phi - 1j * a_phi) ** 2, dim=-1)) / (
+            2 * radius**2)
 
-        square_grad_logpsi = torch.sum(out.j_lap**2, dim=0)
-        grad_grad_logpsi = torch.sum(g_theta / tan_t, dim=-1) + out.l
-        magnetic_contribution = torch.sum(
-            (Q / tan_t) ** 2 + 2j * Q * cos_t / sin_t**2 * g_phi, dim=-1
-        )
-        kinetic = (
-            -grad_grad_logpsi - square_grad_logpsi + magnetic_contribution
-        ) / 2 / radius**2
+        def angular_square(g, d2, m):  # Re[-D^2 - G^2 - 2i M G + M^2] of one axis
+            return (-d2 - g * g).real + 2 * m * g.imag + m * m
 
-        g_phi_sum = out.j_extra[0]
+        g_z = out.j_extra[0]
+        m_z = Q * torch.sum(s, dim=-1)
         if compute_l2:
-            r_hat = torch.stack([sin_t * torch.cos(phi), sin_t * torch.sin(phi), cos_t])
-            theta_hat_prime = torch.stack(
-                [torch.cos(phi) / tan_t, torch.sin(phi) / tan_t, -torch.ones_like(theta)]
-            )
-            mbar = torch.sum(Q * (theta_hat_prime * cos_t + r_hat), dim=-1)
-            # u_z is the Lz direction (extra row 0); order (x, y, z) as mbar's.
-            g_a = torch.stack([out.j_extra[1], out.j_extra[2], out.j_extra[0]])
-            d2_a = torch.stack([out.d[1], out.d[2], out.d[0]])
-            l_square = (
-                torch.sum(-d2_a - g_a**2 - 2j * mbar * g_a + mbar**2, dim=0)
-                - torch.sum(g_theta / tan_t, dim=-1)
-            ).real
+            m_xy = Q * torch.sum(sin_t / (1 + s * cos_t) * torch.stack(
+                [torch.cos(phi), torch.sin(phi)]), dim=-1)
+            l_square = angular_square(g_z, out.d[0], m_z) + sum(
+                angular_square(out.j_extra[a], out.d[a], m_xy[a - 1]) for a in (1, 2))
         else:
             l_square = torch.full(out.x.shape, math.nan, dtype=data.dtype, device=data.device)
         potential = pe(data) * system.interaction_strength
         observables = OtherObservables(
-            angular_momentum_z=g_phi_sum.imag,
-            angular_momentum_z_square=-(out.d[0] + g_phi_sum**2).real,
+            angular_momentum_z=g_z.imag + m_z,
+            angular_momentum_z_square=angular_square(g_z, out.d[0], m_z),
             angular_momentum_square=l_square,
             potential=potential,
             kinetic=kinetic,

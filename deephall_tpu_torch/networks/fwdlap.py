@@ -7,9 +7,13 @@ forward pass.  The jet LayerNorm and jet attention go to the hand-written
 kernels for CUDA tensors and to their plain versions for CPU tensors.
 
 The input functions (features, monopole envelope, Jastrow) are seeded with
-closed-form first and second directional derivatives, where the JAX package
-takes nested ``jax.jvp``.  The Jastrow factor is folded in algebraically:
-``log psi = J + log sum det(Phi)``.
+closed-form first and second derivatives along the seed curves, where the
+JAX package takes nested ``jax.jvp`` along straight lines in
+``(theta, phi)``.  The envelope is taken in the gauge regular at each
+electron's nearer pole (:func:`envelope_fn`), so the jet is that of
+``log psi' = log psi - i Q sum_i s_i phi_i``; its primal differs from
+``Psiformer.forward``'s by that phase.  The Jastrow factor is folded in
+algebraically: ``log psi' = J + log sum det(Phi')``.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from deephall_tpu_torch.config import OrbitalType
-from deephall_tpu_torch.networks.blocks import envelope, envelope_exponents, jastrow_pairs
+from deephall_tpu_torch.networks.blocks import envelope_exponents, jastrow_pairs
 from deephall_tpu_torch.networks.psiformer import Psiformer, spin_values
 from deephall_tpu_torch.ops import fwdlap, jet_attention, jet_layernorm
 from deephall_tpu_torch.ops.fwdlap import Jet
@@ -25,65 +29,78 @@ from deephall_tpu_torch.utils import constant
 from deephall_tpu_torch.weights import param_tree
 
 
-def _sphere_point(data: torch.Tensor, seeds: torch.Tensor):
-    """Unit vectors ``X [*B, N, 3]`` and their first/second derivatives along ``seeds``.
-
-    ``seeds [K+E, *B, N, 2]`` move each electron by ``(a, b)`` in ``(theta, phi)``:
-    ``D X = X_t a + X_p b`` and ``D^2 X = X_tt a^2 + 2 X_tp a b + X_pp b^2``.
-    """
-    theta, phi = data[..., 0], data[..., 1]
-    st, ct, sp, cp = torch.sin(theta), torch.cos(theta), torch.sin(phi), torch.cos(phi)
-    zero = torch.zeros_like(theta)
-    x = torch.stack([st * cp, st * sp, ct], dim=-1)
-    x_t = torch.stack([ct * cp, ct * sp, -st], dim=-1)
-    x_p = torch.stack([-st * sp, st * cp, zero], dim=-1)
-    x_tp = torch.stack([-ct * sp, ct * cp, zero], dim=-1)
-    x_pp = torch.stack([-st * cp, -st * sp, zero], dim=-1)
-    a, b = seeds[..., 0, None], seeds[..., 1, None]
-    first = x_t * a + x_p * b
-    second = -x * (a * a) + 2 * x_tp * (a * b) + x_pp * (b * b)  # X_tt = -X
-    return x, first, second
-
-
 def input_feature_fn(nspins):
-    """Jets of the input features ``(cos t, sin t cos p, sin t sin p, spin)``."""
+    """Jets of the input features ``(cos t, sin t cos p, sin t sin p, spin)``:
+    the point ``X`` itself, so its derivatives are the seeds' velocity and
+    acceleration."""
 
     def fn(data, seeds):
-        x, first, second = _sphere_point(data, seeds)
         spins = constant(tuple(spin_values(nspins)), data.dtype, data.device)
         spins = torch.broadcast_to(spins, data.shape[:-1])[..., None]
         order = constant((2, 0, 1), torch.long, data.device)  # (z, x, y)
         return (
-            torch.cat([x[..., order], spins], dim=-1),
-            torch.cat([first[..., order], torch.zeros_like(first[..., :1])], dim=-1),
-            torch.cat([second[..., order], torch.zeros_like(second[..., :1])], dim=-1),
+            torch.cat([seeds.x[..., order], spins], dim=-1),
+            torch.cat([seeds.v[..., order], torch.zeros_like(seeds.v[..., :1])], dim=-1),
+            torch.cat([seeds.a[..., order], torch.zeros_like(seeds.a[..., :1])], dim=-1),
         )
 
     return fn
 
 
 def envelope_fn(flux: int):
-    """Jets of the envelope ``norm_m u^(Q+m) v^(Q-m)``, ``[*B, N, 2Q+1]`` complex.
+    """Jets of the envelope in the gauge regular at each electron's nearer pole,
+    ``env'_m = norm_m u^(Q+m) v^(Q-m) e^{-i s Q phi}``, ``[*B, N, 2Q+1]`` complex.
 
-    With ``env = norm A(t) e^{i m p}`` and ``A = cos(t/2)^a sin(t/2)^b``:
-    ``A_t / A = L1 = (b/2) cot(t/2) - (a/2) tan(t/2)``, so along a seed
-    ``(da, db)`` the first derivative is ``env g`` with ``g = L1 da + i m db``
-    and the second is ``env (g^2 + L1' da^2)``,
-    ``L1' = -(b/4) / sin(t/2)^2 - (a/4) / cos(t/2)^2``.
+    ``s = fwdlap.hemisphere(theta)``.  In the north (``s = 1``) the envelope is
+    ``norm p^a q^b`` with ``p = cos(t/2)``, ``q = sin(t/2) e^{-i phi}``,
+    ``a = Q+m``, ``b = Q-m``; in the south ``p = sin(t/2)``,
+    ``q = cos(t/2) e^{i phi}`` and the exponents swap.  Both ``p`` and ``q``
+    are smooth functions of the point: with ``w = s z``, ``p^2 = (1 + w) / 2``
+    and ``2 p q = x - i s y``, and ``p >= 1/sqrt(2)``.  So along a curve with
+    velocity ``V`` and acceleration ``A``, with ``u = Dp/p = Dw / (4 p^2)``
+    and ``u2 = D^2p/p = D^2w / (4 p^2) - u^2``,
+
+        Dq   = (x - i s y)' / (2p) - q u
+        D^2q = (x - i s y)'' / (2p) - 2 u Dq - q u2
+
+    and the envelope's jets are sums of ``p^a q^(b-k)``, ``k = 0, 1, 2``,
+    times these: no term divides by ``q``, ``sin theta`` or ``sin(t/2)``.
+    ``log psi`` changes by the phase ``-i Q sum_i s_i phi_i``, for which the
+    gauge terms of ``hamiltonian.forward_laplacian_local_energy`` account.
     """
-    alpha, beta, _ = envelope_exponents(flux)
+    alpha, beta, norm = envelope_exponents(flux)
 
     def fn(data, seeds):
-        env = envelope(data[..., 0], data[..., 1], flux)
-        theta = data[..., 0, None]
+        theta, phi = data[..., 0, None], data[..., 1, None]
+        s = fwdlap.hemisphere(theta)
+        north = s > 0
         a = constant(tuple(alpha), data.dtype, data.device)
         b = constant(tuple(beta), data.dtype, data.device)
-        c, s = torch.cos(theta / 2), torch.sin(theta / 2)
-        l1 = 0.5 * b * c / s - 0.5 * a * s / c
-        dl1 = -0.25 * b / (s * s) - 0.25 * a / (c * c)
-        da, db = seeds[..., 0, None], seeds[..., 1, None]
-        g = torch.complex(l1 * da, 0.5 * (a - b) * db)
-        return env, env * g, env * (g * g + dl1 * da * da)
+        pa, qa = torch.where(north, a, b), torch.where(north, b, a)  # powers of p and q
+        half_c, half_s = torch.cos(theta / 2), torch.sin(theta / 2)
+        p, r = torch.where(north, half_c, half_s), torch.where(north, half_s, half_c)
+
+        mag = constant(tuple(norm.tolist()), data.dtype, data.device) * torch.pow(p, pa)
+
+        def times_q_power(k):  # mag q^k, q = r e^{-i s phi}; k >= 0
+            return torch.polar(mag * torch.pow(r, k), -s * k * phi)
+
+        e0 = times_q_power(qa)
+        e1 = qa * times_q_power(torch.clamp(qa - 1, min=0))
+        e2 = qa * (qa - 1) * times_q_power(torch.clamp(qa - 2, min=0))
+        q = torch.polar(r, -s * phi)
+        v, acc = seeds.v, seeds.a
+        inv_p2 = 1 / (p * p)
+        u = s * v[..., 2, None] * (0.25 * inv_p2)
+        u2 = s * acc[..., 2, None] * (0.25 * inv_p2) - u * u
+        half_inv_p = 0.5 / p
+        dq = torch.complex(v[..., 0, None], -s * v[..., 1, None]) * half_inv_p - q * u
+        d2q = (torch.complex(acc[..., 0, None], -s * acc[..., 1, None]) * half_inv_p
+               - 2 * u * dq - q * u2)
+        first = pa * u * e0 + e1 * dq
+        second = (e0 * (pa * (pa - 1) * u * u + pa * u2) + e1 * (2 * pa * u * dq + d2q)
+                  + e2 * dq * dq)
+        return e0, first, second
 
     return fn
 
@@ -93,9 +110,9 @@ def jastrow_fn(nspins, params: dict):
     par, anti = jastrow_pairs(nspins)
 
     def fn(data, seeds):
-        x, first, second = _sphere_point(data, seeds)
+        x, first, second = seeds
         value = torch.zeros(data.shape[:-2], dtype=data.dtype, device=data.device)
-        d1 = torch.zeros(seeds.shape[:-2], dtype=data.dtype, device=data.device)
+        d1 = torch.zeros(first.shape[:-2], dtype=data.dtype, device=data.device)
         d2 = torch.zeros_like(d1)
         for pairs, name, coef in ((par, "ee_par", 0.25), (anti, "ee_anti", 0.5)):
             if not pairs:
@@ -168,7 +185,8 @@ def psiformer_logpsi_jet(
             against the plain path end to end.
 
     Returns:
-        Scalar-per-walker :class:`Jet` seeded with :func:`fwdlap.electron_seeds`.
+        Scalar-per-walker :class:`Jet` of ``log psi'`` (the module docstring)
+        seeded with :func:`fwdlap.electron_seeds`.
     """
     if kernels:
         layernorm, attention = jet_layernorm.layernorm_jet, jet_attention.attention_jet

@@ -4,11 +4,15 @@ Every intermediate activation carries a second-order jet:
 
 * ``x`` — the primal value ``[*S]``;
 * ``j`` — ``K+E`` directional first derivatives ``[K+E, *S]``: the ``K = 2N``
-  coordinate directions (phi columns pre-scaled by ``1/sin theta`` so the
-  Laplacian comes out in the sphere metric), then the ``E`` extra directions;
+  Laplacian directions, then the ``E`` extra directions;
 * ``l`` — the second derivative summed over the ``K`` Laplacian directions;
-* ``d`` — ``E`` second derivatives, one per extra direction (row 0 is the
-  all-phi Lz direction, rows 1-2 the x and y L^2 directions when present).
+* ``d`` — ``E`` second derivatives, one per extra direction (row 0 the
+  rotation about z, rows 1-2 the rotations about x and y when present).
+
+The directions are curves on the sphere (:func:`electron_seeds`): unit-speed
+great circles through each electron along ``e_theta`` and ``e_phi``, whose
+second derivatives sum to the Laplace-Beltrami operator, and rotations of
+every electron about an axis.  Both are smooth at the poles.
 
 The rules compose from linear maps, pointwise functions (with their first and
 second derivatives written out, e.g. :func:`tanh`), bilinear contractions
@@ -137,57 +141,81 @@ def bilinear(f: Callable[[torch.Tensor, torch.Tensor], torch.Tensor], a: Jet, b:
     return Jet(x, j, l, d)
 
 
+class Seeds(NamedTuple):
+    """The seed curves: each electron's point, and its Cartesian velocity and
+    acceleration along each curve."""
+
+    x: torch.Tensor  # [*B, N, 3] unit vectors
+    v: torch.Tensor  # [K+E, *B, N, 3]
+    a: torch.Tensor  # [K+E, *B, N, 3]
+
+
 def jet_of_fn(
-    fn: Callable[[torch.Tensor, torch.Tensor], tuple[torch.Tensor, torch.Tensor, torch.Tensor]],
+    fn: Callable[[torch.Tensor, Seeds], tuple[torch.Tensor, torch.Tensor, torch.Tensor]],
     x: torch.Tensor,
-    seeds: torch.Tensor,
+    seeds: Seeds,
     extras: int,
 ) -> Jet:
     """Seed a jet through a closed-form function of the configuration.
 
-    The JAX package takes nested ``jax.jvp`` here.  The port's input functions
-    (input features, monopole envelope, Jastrow) instead return their exact
-    directional derivatives: ``fn(x, seeds) -> (f(x), D_s f(x), D_s^2 f(x))``
-    with one leading row per seed direction.
+    The JAX package takes nested ``jax.jvp`` along straight lines in
+    ``(theta, phi)`` here.  The port's input functions (input features,
+    monopole envelope, Jastrow) instead return their exact derivatives along
+    the seed curves: ``fn(x, seeds) -> (f(x), D f(x), D^2 f(x))`` with one
+    leading row per seed, where ``D^2`` is the second derivative along the
+    curve (the coordinate one plus the curve's acceleration term).
 
     Args:
-        fn: Closed-form function and its directional derivatives.
+        fn: Closed-form function and its derivatives along the curves.
         x: ``[*B, N, 2]`` configurations.
-        seeds: ``[K+E, *B, N, 2]`` directions (Laplacian first, extras last).
+        seeds: :class:`Seeds` of ``K+E`` curves (Laplacian first, extras last).
         extras: Number of extra directions E.
     """
     value, first, second = fn(x, seeds)
-    k = seeds.shape[0] - extras
+    k = seeds.v.shape[0] - extras
     return Jet(value, first, torch.sum(second[:k], dim=0), second[k:])
 
 
-def electron_seeds(data: torch.Tensor, compute_l2: bool = False) -> torch.Tensor:
-    """Seed directions: sphere-metric Laplacian, Lz^2, and optionally L^2.
+def hemisphere(theta: torch.Tensor) -> torch.Tensor:
+    """``s = sign(cos theta)``, +1 on the equator: the pole at which each
+    electron's gauge is regular (``networks/fwdlap.py:envelope_fn``)."""
+    return torch.where(torch.cos(theta) >= 0, 1.0, -1.0).to(theta.dtype)
 
-    Directions ``k = 2i`` are ``e_theta_i``; ``k = 2i + 1`` are
-    ``e_phi_i / sin(theta_i)``.  Extra direction 0 is ``sum_i e_phi_i``; with
-    ``compute_l2`` two more follow, the x and y components of the total angular
-    momentum ``u_a[i] = (phihat_a(i), -thetahatprime_a(i))``.
+
+def electron_seeds(data: torch.Tensor, compute_l2: bool = False) -> Seeds:
+    """Seed curves: unit geodesics for the Laplacian, rotations for Lz and L^2.
+
+    Directions ``k = 2i`` and ``2i + 1`` move electron ``i`` alone along the
+    great circles through it tangent to ``e_theta_i`` and ``e_phi_i`` (velocity
+    the unit vector, acceleration ``-X_i``); the Laplace-Beltrami operator is
+    the sum of the two second derivatives.  Extra direction 0 rotates every
+    electron about z (velocity ``z x X``, acceleration ``z x (z x X)``); with
+    ``compute_l2`` directions 1 and 2 rotate about x and about y.
 
     Returns:
-        ``[2N+E, *B, N, 2]`` seed tangents (``E = 3`` with ``compute_l2`` else 1).
+        :class:`Seeds` with ``[2N+E, *B, N, 3]`` curves (``E = 3`` with
+        ``compute_l2`` else 1).
     """
     theta, phi = data[..., 0], data[..., 1]
+    st, ct, sp, cp = torch.sin(theta), torch.cos(theta), torch.sin(phi), torch.cos(phi)
+    x = torch.stack([st * cp, st * sp, ct], dim=-1)
+    # e_phi has no 1/sin(theta): at a pole the two still form an orthonormal frame.
+    e_theta = torch.stack([ct * cp, ct * sp, -st], dim=-1)
+    e_phi = torch.stack([-sp, cp, torch.zeros_like(sp)], dim=-1)
     n = data.shape[-2]
-    batch_ndim = data.ndim - 2
-    eye = torch.eye(2 * n, dtype=data.dtype, device=data.device)
-    eye = eye.reshape((2 * n,) + (1,) * batch_ndim + (n, 2))
-    scale = torch.stack([torch.ones_like(theta), 1.0 / torch.sin(theta)], dim=-1)
-    coord_seeds = eye * scale  # [2N, *B, N, 2]
-    u = torch.stack([torch.zeros_like(theta), torch.ones_like(theta)], dim=-1)
-    seeds = [coord_seeds, u[None]]
+    eye = torch.eye(n, dtype=data.dtype, device=data.device)
+    eye = eye.reshape((n,) + (1,) * (data.ndim - 2) + (n, 1))
+    lap_v = torch.stack([eye * e_theta, eye * e_phi], dim=1).flatten(0, 1)
+    lap_a = (-eye * x).repeat_interleave(2, dim=0)
+    cx, cy, cz = x.unbind(-1)
+    zero = torch.zeros_like(cx)
+    rot_v = [torch.stack([-cy, cx, zero], dim=-1)]
+    rot_a = [torch.stack([-cx, -cy, zero], dim=-1)]
     if compute_l2:
-        phi_hat = torch.stack([-torch.sin(phi), torch.cos(phi)])  # [2, *B, N]
-        theta_hat_prime = torch.stack(
-            [torch.cos(phi) / torch.tan(theta), torch.sin(phi) / torch.tan(theta)]
-        )
-        seeds.append(torch.stack([phi_hat, -theta_hat_prime], dim=-1))
-    return torch.cat(seeds, dim=0)
+        rot_v += [torch.stack([zero, -cz, cy], dim=-1), torch.stack([cz, zero, -cx], dim=-1)]
+        rot_a += [torch.stack([zero, -cy, -cz], dim=-1), torch.stack([-cx, zero, -cz], dim=-1)]
+    return Seeds(x, torch.cat([lap_v, torch.stack(rot_v)]),
+                 torch.cat([lap_a, torch.stack(rot_a)]))
 
 
 def logsumdet_jet(t: Jet) -> Jet:

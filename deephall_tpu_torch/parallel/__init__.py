@@ -24,6 +24,7 @@ from deephall_tpu_torch.parallel.mesh import (
     initialize_distributed,
     launch_env,
     rank,
+    rendezvous_port,
     shard_rows,
     shutdown_distributed,
     world_size,
@@ -41,6 +42,7 @@ __all__ = [
     "initialize_distributed",
     "launch_env",
     "rank",
+    "rendezvous_port",
     "shard_rows",
     "shutdown_distributed",
     "world_size",

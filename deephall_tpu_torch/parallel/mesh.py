@@ -29,8 +29,11 @@ from __future__ import annotations
 
 import atexit
 import datetime
+import itertools
 import logging
 import os
+import socket
+from pathlib import Path
 
 import torch
 import torch.distributed as dist
@@ -77,6 +80,42 @@ def device_for_rank(device: str | torch.device, local_rank: int) -> torch.device
                 f"local rank {local_rank} has no card: {torch.cuda.device_count()} visible")
         device = torch.device("cuda", local_rank)
     return device
+
+
+# The kernel hands out ports of this range to bind(0) and to every connect.
+EPHEMERAL_RANGE = Path("/proc/sys/net/ipv4/ip_local_port_range")
+PORT_BLOCK = 256
+_port_offsets: dict[int, itertools.count] = {}
+
+
+def rendezvous_port(block: int = 0) -> int:
+    """A free port of this host for ``MASTER_PORT``, from below the ephemeral range.
+
+    A port that ``bind(0)`` finds free is closed again before rank 0's store
+    binds it, seconds later (after the children's imports), and meanwhile the
+    kernel may hand it to any socket of the host: every ``bind(0)`` and every
+    outgoing ``connect`` draw from the ephemeral range.  Below that range the
+    kernel hands out no port unasked.  Callers that pick ports at the same
+    time take different ``block`` numbers (``PORT_BLOCK`` ports each, counted
+    down from the range's start); within its block a process starts at an
+    offset from its id, moves on with every call, and takes the first port
+    that a bind without ``SO_REUSEADDR`` finds free (not one still in
+    ``TIME_WAIT``).
+    """
+    low = int(EPHEMERAL_RANGE.read_text().split()[0]) if EPHEMERAL_RANGE.exists() else 32768
+    start = low - (block + 1) * PORT_BLOCK
+    if start < 1024:
+        raise ValueError(f"port block {block} lies below 1024 (ephemeral range from {low})")
+    offsets = _port_offsets.setdefault(block, itertools.count(os.getpid() % PORT_BLOCK))
+    for _ in range(PORT_BLOCK):
+        port = start + next(offsets) % PORT_BLOCK
+        with socket.socket() as sock:
+            try:
+                sock.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        return port
+    raise RuntimeError(f"no free port in {start}..{start + PORT_BLOCK - 1}")
 
 
 def initialize_distributed(

@@ -133,14 +133,72 @@ def test_cpu_tensors_take_the_plain_versions():
     assert (jet_layernorm.layernorm_jet.launches, jet_attention.attention_jet.launches) == before
 
 
+def jax_curve_accelerations(jdata, compute_l2):
+    """``(theta'', phi'')`` of the port's seed curves, from the JAX package's seeds.
+
+    The port seeds unit great circles and rotations where the JAX package
+    seeds straight lines in ``(theta, phi)`` with the same velocities.  Along
+    the great circle through electron ``i`` tangent to ``e_phi`` the
+    Christoffel term gives ``theta'' = cot theta_i`` (the one along
+    ``e_theta`` is a coordinate line); a rotation's acceleration is its
+    velocity field, the JAX seed as a function of the configuration,
+    differentiated along itself (none for the rotation about z).
+    """
+    seeds = jax_fwdlap.electron_seeds(jdata, compute_l2)
+    theta = jdata[..., 0]
+    n = jdata.shape[-2]
+    eye = jnp.eye(n, dtype=jdata.dtype).reshape((n,) + (1,) * (jdata.ndim - 2) + (n,))
+    christoffel = jnp.stack([eye / jnp.tan(theta), jnp.zeros_like(eye * theta)], -1)
+    lap = jnp.stack([jnp.zeros_like(christoffel), christoffel], 1).reshape(seeds[:2 * n].shape)
+    flows = [jax.jvp(lambda d, k=k: jax_fwdlap.electron_seeds(d, compute_l2)[k], (jdata,),
+                     (seeds[k],))[1] for k in range(2 * n, seeds.shape[0])]
+    return jnp.concatenate([lap, jnp.stack(flows)])
+
+
+def jax_curve_jet(f, jdata, compute_l2):
+    """The jet of ``f`` along the port's seed curves from JAX's nested jvp:
+    the coordinate second derivatives plus the first derivative along
+    :func:`jax_curve_accelerations`."""
+    extras = 3 if compute_l2 else 1
+    seeds = jax_fwdlap.electron_seeds(jdata, compute_l2)
+    coord = jax_fwdlap.jet_of_fn(f, jdata, seeds, extras)
+    accel = jax_fwdlap.jet_of_fn(f, jdata, jax_curve_accelerations(jdata, compute_l2), extras).j
+    k = seeds.shape[0] - extras
+    return jax_fwdlap.Jet(coord.x, coord.j, coord.l + jnp.sum(accel[:k], 0), coord.d + accel[k:])
+
+
+def jax_sphere_point(e):
+    theta, phi = e[..., 0], e[..., 1]
+    return jnp.stack([jnp.sin(theta) * jnp.cos(phi), jnp.sin(theta) * jnp.sin(phi),
+                      jnp.cos(theta)], -1)
+
+
 @pytest.mark.parametrize("compute_l2", [False, True])
 def test_electron_seeds_match(compute_l2):
+    # The point, and each seed curve's velocity and acceleration in Cartesian
+    # coordinates: the point's first and second derivative along the JAX
+    # package's seeds, plus its first derivative along the curves' coordinate
+    # accelerations.
     rng = np.random.default_rng(1)
     data = np.stack([np.arccos(rng.uniform(-1, 1, (5, 6))), rng.uniform(-np.pi, np.pi, (5, 6))],
                     -1).astype(np.float32)
-    want = np.asarray(jax_fwdlap.electron_seeds(jnp.asarray(data), compute_l2))
-    got = fwdlap.electron_seeds(torch.from_numpy(data), compute_l2).numpy()
-    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    jdata = jnp.asarray(data)
+    seeds = jax_fwdlap.electron_seeds(jdata, compute_l2)
+
+    def d1(v):
+        return jax.jvp(jax_sphere_point, (jdata,), (v,))[1]
+
+    def d2(v):
+        return jax.jvp(lambda y: jax.jvp(jax_sphere_point, (y,), (v,))[1], (jdata,), (v,))[1]
+
+    accelerations = jax_curve_accelerations(jdata, compute_l2)
+    want_v = np.asarray(jax.vmap(d1)(seeds))
+    want_a = np.asarray(jax.vmap(d2)(seeds) + jax.vmap(d1)(accelerations))
+    got = fwdlap.electron_seeds(torch.from_numpy(data), compute_l2)
+    np.testing.assert_allclose(got.x.numpy(), np.asarray(jax_sphere_point(jdata)), rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_allclose(got.v.numpy(), want_v, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got.a.numpy(), want_a, rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("c,e", [(12, 1), (12, 3)])
@@ -192,10 +250,12 @@ def jax_input_jets(nspins, flux, params):
 
 @pytest.mark.parametrize("compute_l2", [False, True])
 def test_closed_form_input_jets_match_nested_jvp(compute_l2):
-    # Closed-form derivatives against JAX's nested jvp of the same functions:
+    # Closed-form derivatives along the port's seed curves against JAX's nested
+    # jvp of the same functions converted to those curves (jax_curve_jet), the
+    # envelope times the gauge factor e^{-i s Q phi} of its nearer pole:
     # float32 evaluation in another order, 2e-5 of each field's largest value,
     # with the functions' own scale (1) as the floor: the Jastrow is invariant
-    # under the all-phi rotation, so its exact d[0] is 0 and JAX's is rounding.
+    # under rotations, so its exact d is 0 and JAX's is rounding.
     nspins, flux = (3, 2), 7
     rng = np.random.default_rng(5)
     data = np.stack([np.arccos(rng.uniform(-0.95, 0.95, (4, 5))),
@@ -203,13 +263,17 @@ def test_closed_form_input_jets_match_nested_jvp(compute_l2):
     params = {"ee_par": np.float32([0.8]), "ee_anti": np.float32([1.3])}
     extras = 3 if compute_l2 else 1
     jdata = jnp.asarray(data)
-    jseeds = jax_fwdlap.electron_seeds(jdata, compute_l2)
     tdata = torch.from_numpy(data)
     tseeds = fwdlap.electron_seeds(tdata, compute_l2)
-    jfns = jax_input_jets(nspins, flux, jax.tree.map(jnp.asarray, params))
+    features, envelope, jastrow = jax_input_jets(nspins, flux, jax.tree.map(jnp.asarray, params))
+    s = jnp.where(jnp.cos(jdata[..., :1]) >= 0, 1.0, -1.0)
+
+    def gauged_envelope(e):
+        return envelope(e) * jnp.exp(-0.5j * flux * s * e[..., 1:])
+
     tfns = (nets_fwdlap.input_feature_fn(nspins), nets_fwdlap.envelope_fn(flux),
             nets_fwdlap.jastrow_fn(nspins, jax.tree.map(torch.from_numpy, params)))
-    for jf, tf in zip(jfns, tfns):
-        want = jax.jit(lambda d, s, f=jf: jax_fwdlap.jet_of_fn(f, d, s, extras))(jdata, jseeds)
+    for jf, tf in zip((features, gauged_envelope, jastrow), tfns):
+        want = jax.jit(lambda d, f=jf: jax_curve_jet(f, d, compute_l2))(jdata)
         got = fwdlap.jet_of_fn(tf, tdata, tseeds, extras)
         assert_jets_close(got, want, floor=1.0)

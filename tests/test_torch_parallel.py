@@ -1,9 +1,12 @@
 """The port's walker data parallelism (``deephall_tpu_torch/parallel``) on the CPU.
 
-Two gloo processes on ``127.0.0.1`` with a free port, launched with the
-variables torchrun sets, as ``tests/test_distributed.py:_spawn`` launches the
-JAX package's processes (the full-precision sweep pinned, a timeout on every
-``communicate``):
+Two gloo processes on ``127.0.0.1``, launched with the variables torchrun
+sets, as ``tests/test_distributed.py:_spawn`` launches the JAX package's
+processes (the full-precision sweep pinned, a time limit on every child).
+The rendezvous port lies in this xdist worker's block below the ephemeral
+range (``parallel.rendezvous_port``).  Each child's stdout and stderr are
+kept in files under the test's ``tmp_path``, with its own clock at its start,
+its phases and its exit, and a failure shows both ranks' output:
 
 * the rendezvous and the collectives, and the failures that must raise;
 * the whole-batch statistics, clipped differences and cotangent weights of
@@ -26,6 +29,7 @@ import os
 import socket
 import subprocess
 import sys
+import tempfile
 import textwrap
 from pathlib import Path
 
@@ -68,9 +72,11 @@ TINY = [
 
 
 def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    """A rendezvous port in this xdist worker's block below the ephemeral range
+    (``parallel.rendezvous_port``): no other worker's sockets, and no socket
+    that the kernel hands out, can take it before rank 0's store binds it."""
+    worker = os.environ.get("PYTEST_XDIST_WORKER", "gw0")
+    return parallel.rendezvous_port(block=int(worker.removeprefix("gw")))
 
 
 def child_env(rank: int | None, size: int, port: int) -> dict:
@@ -82,35 +88,74 @@ def child_env(rank: int | None, size: int, port: int) -> dict:
     return env
 
 
-def spawn(argv: list[str], ranks: int, check: bool = True) -> list[tuple[int, str, str]]:
-    """Run ``python argv`` as ``ranks`` gloo ranks (one process without a launch
-    when ``ranks`` is 1); returns each rank's ``(returncode, stdout, stderr)``."""
-    port = free_port()
-    procs = [
-        subprocess.Popen([sys.executable, *argv], cwd=REPO, text=True,
-                         env=child_env(r if ranks > 1 else None, ranks, port),
-                         stdout=subprocess.PIPE, stderr=subprocess.PIPE)
-        for r in range(ranks)
-    ]
-    outs = []
+def run_children(children: list[tuple[list[str], dict]], logs: Path
+                 ) -> list[tuple[int, str, str]]:
+    """Run ``python argv`` with ``env`` for each child, its stdout and stderr in
+    files of a new directory under ``logs``, waiting up to ``TIMEOUT`` for each
+    in turn; returns each child's ``(returncode, stdout, stderr)``.  A timeout
+    kills every child and raises with every child's output attached."""
+    logs = Path(tempfile.mkdtemp(prefix="children-", dir=logs))
+    procs, paths = [], []
+    for r, (argv, env) in enumerate(children):
+        paths.append((logs / f"rank{r}.stdout", logs / f"rank{r}.stderr"))
+        with paths[-1][0].open("w") as out, paths[-1][1].open("w") as err:
+            procs.append(subprocess.Popen([sys.executable, *argv], cwd=REPO, env=env, text=True,
+                                          stdout=out, stderr=err))
     try:
         for p in procs:
-            out, err = p.communicate(timeout=TIMEOUT)
-            outs.append((p.returncode, out, err))
+            p.wait(timeout=TIMEOUT)
+    except subprocess.TimeoutExpired as e:
+        for p in procs:
+            p.kill()
+            p.wait()
+        e.add_note(report(outputs(procs, paths)))
+        raise
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.communicate()
+                p.wait()
+    return outputs(procs, paths)
+
+
+def outputs(procs, paths) -> list[tuple[int, str, str]]:
+    return [(p.returncode, out.read_text(), err.read_text()) for p, (out, err) in zip(procs, paths)]
+
+
+def report(outs) -> str:
+    """Every child's exit code, stdout and stderr, for a failure's message."""
+    return "\n".join(f"--- rank {r}: rc={rc}\nstdout={out}\nstderr={err}"
+                     for r, (rc, out, err) in enumerate(outs))
+
+
+def spawn(argv: list[str], ranks: int, logs: Path, check: bool = True
+          ) -> list[tuple[int, str, str]]:
+    """Run ``python argv`` as ``ranks`` gloo ranks (one process without a launch
+    when ``ranks`` is 1), their output kept under ``logs``; returns each rank's
+    ``(returncode, stdout, stderr)``."""
+    port = free_port()
+    outs = run_children([(argv, child_env(r if ranks > 1 else None, ranks, port))
+                         for r in range(ranks)], logs)
     if check:
-        for rc, out, err in outs:
-            assert rc == 0, f"child failed rc={rc}\nstdout={out}\nstderr={err}"
+        for rc, _, _ in outs:
+            assert rc == 0, f"child failed rc={rc}\n{report(outs)}"
     return outs
+
+
+# Each child script's own clock on stderr: its start, the phases that call
+# stamp(), and its exit (registered first, so it runs after the group is left).
+STAMP = """import atexit, time
+def stamp(what):
+    print(f"[{time.time():.3f}] {what}", file=sys.stderr, flush=True)
+stamp("start")
+atexit.register(stamp, "exit")
+"""
 
 
 def script(tmp_path: Path, name: str, body: str) -> str:
     path = tmp_path / name
-    path.write_text(f"import sys\nsys.path.insert(0, {str(REPO)!r})\n" + textwrap.dedent(body))
+    path.write_text(f"import sys\nsys.path.insert(0, {str(REPO)!r})\n" + STAMP
+                    + textwrap.dedent(body))
     return str(path)
 
 
@@ -156,7 +201,8 @@ def test_collectives_on_two_ranks(tmp_path):
     # Each rank contributes its index; every collective gives the global value
     # in global (rank) order, and a draw of the whole batch splits by rows.
     # The run's name comes from rank 0's clock, 1.5 s behind rank 1's.
-    outs = [json.loads(out) for _, out, _ in spawn([script(tmp_path, "c.py", COLLECTIVES)], 2)]
+    outs = [json.loads(out)
+            for _, out, _ in spawn([script(tmp_path, "c.py", COLLECTIVES)], 2, tmp_path)]
     want_draw = torch.rand((4, 3), generator=torch.Generator().manual_seed(3))
     for r, got in enumerate(outs):
         assert (got["rank"], got["size"]) == (r, 2)
@@ -232,6 +278,20 @@ def test_launches_that_cannot_start_raise(no_launch):
     assert not dist.is_initialized()
 
 
+def test_rendezvous_ports_lie_below_the_ephemeral_range():
+    # Each call takes the next free port of its block, below the range from
+    # which bind(0) and connect draw, and skips a port that is taken.
+    low = int(parallel.mesh.EPHEMERAL_RANGE.read_text().split()[0])
+    size = parallel.mesh.PORT_BLOCK
+    ports = [parallel.rendezvous_port(block=7) for _ in range(2)]
+    with socket.socket() as taken:
+        nxt = low - 8 * size + (ports[1] + 1 - (low - 8 * size)) % size
+        taken.bind(("127.0.0.1", nxt))
+        ports.append(parallel.rendezvous_port(block=7))
+    assert all(low - 8 * size <= p < low - 7 * size for p in ports), ports
+    assert len(set(ports)) == 3 and nxt not in ports, (ports, nxt)
+
+
 LONELY = """
 from deephall_tpu_torch import parallel
 parallel.initialize_distributed("cpu", timeout=3)
@@ -243,21 +303,10 @@ def test_failed_rendezvous_raises(tmp_path):
     # Rank 0 and rank 1 of a launch of two, each alone at its own port: both
     # raise within the timeout, and neither carries on.
     path = script(tmp_path, "lonely.py", LONELY)
-    procs = []
-    for rank in (0, 1):
-        env = child_env(rank, 2, free_port())
-        procs.append(subprocess.Popen([sys.executable, path], cwd=REPO, env=env, text=True,
-                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE))
-    try:
-        for p in procs:
-            out, err = p.communicate(timeout=TIMEOUT)
-            assert p.returncode != 0 and "JOINED" not in out
-            assert "could not rendezvous" in err, err
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
+    outs = run_children([([path], child_env(rank, 2, free_port())) for rank in (0, 1)], tmp_path)
+    for rc, out, err in outs:
+        assert rc != 0 and "JOINED" not in out, report(outs)
+        assert "could not rendezvous" in err, report(outs)
 
 
 REJOIN = """
@@ -265,11 +314,14 @@ import torch
 import torch.distributed as dist
 from deephall_tpu_torch import parallel, train
 
+stamp("imported")
 parallel.initialize_distributed("cpu", timeout=60)
+stamp("joined")
 group = dist.group.WORLD
 # An entry point keeps the group, and the next call in this process takes it.
 for i in range(2):
     train.cli([*{tiny!r}, "optim.iterations=1", f"log.save_path={save}/run{{i}}", "--device", "cpu"])
+    stamp(f"cli {{i}} done")
     assert dist.is_initialized() and dist.group.WORLD is group
     assert parallel.all_reduce_sum(torch.ones(1)).item() == 2
 print("KEPT")
@@ -281,8 +333,8 @@ def test_group_is_joined_once_and_kept(tmp_path):
     # at exit: leaving and joining again at the same address raced (one rank
     # reached the old rendezvous store and failed, the other hung).
     body = REJOIN.format(tiny=TINY, save=tmp_path)
-    outs = spawn([script(tmp_path, "rejoin.py", body)], 2)
-    assert [out.split()[-1] for _, out, _ in outs] == ["KEPT"] * 2
+    outs = spawn([script(tmp_path, "rejoin.py", body)], 2, tmp_path)
+    assert [out.split()[-1] for _, out, _ in outs] == ["KEPT"] * 2, report(outs)
 
 
 # --------------------------------------------------------------------------- #
@@ -378,7 +430,7 @@ def whole_batch(tmp_path_factory):
     arrays = inputs(tmp / "inputs.npz")
     body = WHOLE_BATCH.format(raw=RAW, seed=PARAM_SEED, inputs=str(tmp / "inputs.npz"),
                               out=str(tmp / "rank{}.npz"))
-    spawn([script(tmp, "whole_batch.py", body)], 2)
+    spawn([script(tmp, "whole_batch.py", body)], 2, tmp)
     ranks = []
     for r in range(2):
         with np.load(tmp / f"rank{r}.npz") as f:
@@ -521,7 +573,7 @@ def energies(save: Path) -> list[float]:
 
 def train_run(save: Path, ranks: int, iterations: int, *extra: str):
     return spawn(["-m", "deephall_tpu_torch.train", *TINY, f"optim.iterations={iterations}",
-                  f"log.save_path={save}", *extra, "--device", "cpu"], ranks)
+                  f"log.save_path={save}", *extra, "--device", "cpu"], ranks, save.parent)
 
 
 @pytest.fixture(scope="module")
@@ -611,7 +663,7 @@ def test_one_rank_asking_for_a_save_saves_on_all(tmp_path, what):
     argv = [*TINY, "optim.iterations=9", "log.save_step_interval=3", f"log.save_path={save}",
             "--device", "cpu"]
     outs = spawn([script(tmp_path, "asks.py", ONE_RANK_ASKS.format(what=what, argv=argv))], 2,
-                 check=what == "clock")
+                 tmp_path, check=what == "clock")
     if what == "clock":
         want = ["ckpt_000002.npz", "ckpt_000005.npz", "ckpt_000008.npz"]
     else:  # both save after the first block, then stop
@@ -638,7 +690,7 @@ def test_runner_on_two_ranks_matches_one_process(training, tmp_path):
     for ranks in (1, 2):
         out = str(tmp_path / f"{{}}_{ranks}.npz")
         outs = spawn([script(tmp_path, f"runner{ranks}.py", RUNNER.format(ckpt=ckpt, out=out))],
-                     ranks)
+                     ranks, tmp_path)
         assert sum(err.count("Saved") for _, _, err in outs) == 2
         for estimator in ("density", "ed_overlap"):
             with np.load(out.format(estimator)) as f:

@@ -11,13 +11,14 @@ from __future__ import annotations
 
 import json
 import os
-import socket
 import subprocess
 import sys
 from pathlib import Path
 
 import pytest
 import torch
+
+from deephall_tpu_torch import parallel
 
 pytestmark = pytest.mark.cuda
 
@@ -89,9 +90,7 @@ def run_ranks(tmp_path, ranks: int, device: str, backend: str) -> list[dict]:
     path = tmp_path / "child.py"
     path.write_text(CHILD.format(repo=str(REPO), device=device, backend=backend,
                                  ckpt=str(REPO / "artifacts/prod_r4/ckpt_019999.npz")))
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
+    port = parallel.rendezvous_port()
     procs = []
     for rank in range(ranks):
         env = {k: v for k, v in os.environ.items() if k not in LAUNCH_VARS}

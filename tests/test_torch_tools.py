@@ -422,3 +422,18 @@ def test_pole_probe_runs_on_the_card_by_default(monkeypatch):
         probe.main([])
     assert math.isfinite(float(run_main(probe.main, ["--device", "cpu", "--walkers", "16"])
                                .splitlines()[-1].split()[-1]))
+
+
+def test_local_energy_timing_needs_the_card(monkeypatch):
+    # It times the kernels: without a card it exits 1 and prints no result.
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_local_energy_timing", REPO / "scripts" / "torch_local_energy_timing.py")
+    timing = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(timing)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        assert timing.main([]) == 1
+    assert out.getvalue() == "" and "no CUDA card" in err.getvalue()
