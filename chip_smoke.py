@@ -144,7 +144,23 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
    the card's peaks over that time (finite, positive, at most 1).
    ``dispersion_report_torch.py --rebuild`` on phase ``magnetoroton``'s
    directory: sector 2's row, its ED gap equal to the port's ED (1e-9), a
-   finite purity.
+   finite purity;
+16. large_n: systems beyond N = 6.  Every kernel of the jet (the generic
+   LayerNorm with and without a residual, the whole attention, its q/k/v
+   projection on the tensor cores and the plane-streaming softmax/values
+   kernel) against its plain version (2e-5) at B = 3360, D = 256, H = 4 and
+   (N, C, E) = (8, 19, 3), (10, 21, 1), (10, 23, 3), (12, 25, 1), (12, 27, 3),
+   (16, 35, 3), with each one's time, its plain version's and its bound.
+   The N = 10, 2Q = 27 production state (``artifacts/prod_n10_r5``) through
+   the CLI: 20 inference iterations at batch 3360, the mean energy within
+   0.01 of 14.27791 (``BASELINE.md``); 5 with ``system.compute_l2=true``, L^2
+   < 1 (the trained state's own L^2 is 0.55); 5 KFAC iterations resuming its curvature (step 27730 to 27735),
+   finite and within 0.02; each run's launches those of its local energies on
+   the generic LayerNorm and the plane-streaming kernel.  336 of its walkers
+   through the kernels, the plain versions and float64 in both modes, with
+   the gates of phases ``end_to_end`` and ``train``.  A fresh N = 12, 2Q = 23
+   production block (seed 42, L^2 on, no checkpoint): 2 KFAC iterations,
+   finite, the same launches rule, and its walkers under the same gates.
 
 The line before the last is the kernel table; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -234,6 +250,24 @@ ROTON_SECTOR, ROTON_ITERATIONS, ROTON_TAIL = 2, 20, 5
 TRACE_ITERATIONS = 3
 # Phase tools: the iterations of the block the tools time and trace.
 TOOLS_BLOCK = 10
+# Phase large_n: the jet's kernels at the JAX package's larger systems, (N, C,
+# E) with C = 2N + E (BASELINE.md: nu = 2/5 at N = 8, nu = 1/3 at N = 10, nu
+# = 3/7 at N = 12; N = 16 is the largest the port states for every kernel);
+# the N = 10 production state (14.27791 +- 0.00006 over its last iterations,
+# its KfacState at step 27730); and a fresh N = 12, 2Q = 23 block.  The
+# trained N = 10 state is not the exact L = 0 ground state: its L^2 is 0.479
+# +- 0.110 on its 3360 stored walkers in float64 and 0.555 +- 0.012 over 100
+# inference iterations (scripts/torch_state_observables.py and the CLI on an
+# H100; 0.12 an iteration, so 0.05 for a mean of 5).  The mean over 5
+# iterations is held below 1, half of a pure L = 1 state's L(L + 1) = 2; a
+# broken L^2 jet gives O(10-1000).
+LARGE_N_SHAPES = ((8, 19, 3), (10, 21, 1), (10, 23, 3), (12, 25, 1), (12, 27, 3), (16, 35, 3))
+N10 = REPO / "artifacts/prod_n10_r5"
+N10_CKPT = N10 / "ckpt_027729.npz"
+N10_ENERGY, N10_TOL, N10_KFAC_TOL, N10_L2_MAX = 14.27791, 0.01, 0.02, 1.0
+N10_RESUME_STEP = 27730
+N10_ITERATIONS, N10_L2_ITERATIONS, N10_KFAC_ITERATIONS = 20, 5, 5
+N12_NELEC, N12_FLUX, N12_ITERATIONS = 12, 23, 2
 # The jet LayerNorm takes under half a millisecond, and the host's work before
 # its launch an eighth to a sixth of that (measured on an H100 host): it is
 # timed over this many calls in a row.
@@ -329,13 +363,13 @@ def compare(name: str, got, want, tol: float) -> dict:
     return dict(max_abs_err=worst_abs, max_rel_err=worst_rel)
 
 
-def random_jet(gen, c, e, device):
+def random_jet(gen, c, e, device, batch=BATCH, tokens=TOKENS):
     from deephall_tpu_torch.ops.fwdlap import Jet
 
     def normal(*shape):
         return torch.randn(shape, generator=gen, device=device)
 
-    s = (BATCH, TOKENS, FEAT)
+    s = (batch, tokens, FEAT)
     return Jet(normal(*s), normal(c, *s), normal(*s), normal(e, *s))
 
 
@@ -360,126 +394,146 @@ def attention_params(gen, device):
     return p
 
 
-def same_bytes_add_ms(planes: int, device) -> float:
+def same_bytes_add_ms(planes: int, device, batch: int, tokens: int) -> float:
     """Time of ``torch.add(T, R, out=O)`` on three buffers of a jet's size."""
-    t, r, out = (torch.empty(planes, BATCH, TOKENS, FEAT, device=device).fill_(i) for i in range(3))
+    t, r, out = (torch.empty(planes, batch, tokens, FEAT, device=device).fill_(i) for i in range(3))
     return cuda_ms(lambda: torch.add(t, r, out=out), calls=LN_CALLS)
+
+
+def kernel_rows(device, rates, c: int, e: int, tokens: int = TOKENS, batch: int = BATCH) -> dict:
+    """Each kernel against its plain version on random inputs of one jet shape,
+    with its time, its plain version's and its bound: the jet LayerNorm with a
+    residual (the streamed kernel at the production shapes, the generic one
+    elsewhere) and without (the generic one), the whole attention, its two
+    projections on the tensor cores, and the softmax/values core (tiled at the
+    production shapes, plane-streaming elsewhere)."""
+    from deephall_tpu_torch.ops import jet_attention as ja
+    from deephall_tpu_torch.ops import jet_layernorm as jl
+
+    production = tokens == TOKENS and (c, e) in MODES
+    gen = torch.Generator(device=device).manual_seed(1000 * tokens + c)
+    planes = c + e + 2
+    rows = batch * tokens
+    elems = planes * rows * FEAT
+    shape = f"T={tokens} (C, E)=({c}, {e})"
+    results = {}
+
+    t = random_jet(gen, c, e, device, batch, tokens)
+    r = random_jet(gen, c, e, device, batch, tokens)
+    p_ln = {
+        "scale": torch.randn(FEAT, generator=gen, device=device) * 0.3 + 1.0,
+        "bias": torch.randn(FEAT, generator=gen, device=device) * 0.1,
+    }
+    before = jl.layernorm_jet.launches_streamed
+    err = compare(
+        f"jet_layernorm {shape}",
+        tuple(jl.layernorm_jet(p_ln, t, residual=r)),
+        tuple(jl.layernorm_jet_plain(p_ln, t, residual=r)),
+        KERNEL_TOL,
+    )
+    if jl.layernorm_jet.launches_streamed != before + production:
+        raise AssertionError(f"jet_layernorm {shape}: not the {'streamed' if production else 'generic'} kernel")
+    # The generic kernel, at a shape the streamed one does not take.
+    generic = compare(
+        f"jet_layernorm {shape} without a residual",
+        tuple(jl.layernorm_jet(p_ln, t)),
+        tuple(jl.layernorm_jet_plain(p_ln, t)),
+        KERNEL_TOL,
+    )
+    if jl.layernorm_jet.launches_streamed != before + production:
+        raise AssertionError(f"jet_layernorm {shape} without a residual: not the generic kernel")
+    # Read the jet (and the residual), write the output; about a dozen flops
+    # per element (add, centre, variance products, output expansion).
+    ln_bound = bound(3 * elems * 4 + 2 * FEAT * 4, 12 * elems, rates)
+    generic_bound = bound(2 * elems * 4 + 2 * FEAT * 4, 12 * elems, rates)
+    results["jet_layernorm"] = against(dict(
+        **err,
+        ms=cuda_ms(lambda: jl.layernorm_jet(p_ln, t, residual=r), calls=LN_CALLS),
+        single_call_ms=cuda_ms(lambda: jl.layernorm_jet(p_ln, t, residual=r)),
+        plain_ms=cuda_ms(lambda: jl.layernorm_jet_plain(p_ln, t, residual=r), reps=5),
+        bound_ms=ln_bound[0], bound_by=ln_bound[1], library_ms=None,
+        # What the card gives a plain pass over the same bytes (two reads, one write).
+        same_bytes_add_ms=same_bytes_add_ms(planes, device, batch, tokens),
+        generic_no_residual_ms=cuda_ms(lambda: jl.layernorm_jet(p_ln, t), calls=LN_CALLS),
+        generic_no_residual_plain_ms=cuda_ms(lambda: jl.layernorm_jet_plain(p_ln, t), reps=5),
+        generic_no_residual_bound_ms=generic_bound[0],
+        generic_no_residual_max_rel_err=generic["max_rel_err"],
+    ))
+    del r
+
+    p = attention_params(gen, device)
+    att_bytes, core_flops, proj_flops = ja.attention_work(batch, tokens, FEAT, HEADS, c, e)
+    err = compare(
+        f"jet_attention {shape}",
+        tuple(ja.attention_jet(p, HEADS, t)),
+        tuple(ja.attention_jet_plain(p, HEADS, t)),
+        KERNEL_TOL,
+    )
+    att_bound = bound(att_bytes, core_flops, rates, proj_flops)
+    results["jet_attention"] = against(dict(
+        **err,
+        ms=cuda_ms(lambda: ja.attention_jet(p, HEADS, t)),
+        plain_ms=cuda_ms(lambda: ja.attention_jet_plain(p, HEADS, t), reps=5),
+        bound_ms=att_bound[0], bound_by=att_bound[1], library_ms=None,
+    ))
+
+    stacked = torch.cat([t.x[None], t.j, t.l[None], t.d]).reshape(planes * rows, FEAT)
+    del t
+    m = planes * rows
+    for width, key in ((3 * FEAT, "jet_gemm"), (FEAT, "jet_gemm_out")):
+        w = torch.randn(FEAT, width, generator=gen, device=device) / math.sqrt(FEAT)
+        b = torch.randn(width, generator=gen, device=device) * 0.1
+        split = ja.split_weight(w)
+        before = ja.jet_gemm.launches_tensor_core
+        out = ja.jet_gemm(stacked, split, b, rows)
+        if ja.jet_gemm.launches_tensor_core != before + 1:
+            raise AssertionError(f"jet_gemm {shape} N={width}: not on the tensor cores")
+        err = compare(f"jet_gemm {shape} N={width}", out, ja.jet_gemm_plain(stacked, w, b, rows), KERNEL_TOL)
+        gemm_bound = bound((m * FEAT + FEAT * width + width + m * width) * 4, 0,
+                           rates, 2 * m * FEAT * width)
+        results[key] = against(dict(
+            **err,
+            ms=cuda_ms(lambda: ja.jet_gemm(stacked, split, b, rows)),
+            plain_ms=cuda_ms(lambda: ja.jet_gemm_plain(stacked, w, b, rows)),
+            bound_ms=gemm_bound[0], bound_by=gemm_bound[1],
+            library_ms=cuda_ms(lambda: torch.matmul(stacked, w)),
+            cuda_core_ms=cuda_ms(lambda: ja.jet_gemm(stacked, w, b, rows), reps=3),
+        ))
+        if width == 3 * FEAT:
+            qkv = out
+        del out
+    del stacked
+
+    before = ja.softmax_values.launches_tiled
+    err = compare(
+        f"jet_softmax_values {shape}",
+        ja.softmax_values(qkv, batch, tokens, HEADS, c, e),
+        ja.softmax_values_plain(qkv, batch, tokens, HEADS, c, e),
+        KERNEL_TOL,
+    )
+    if ja.softmax_values.launches_tiled != before + production:
+        raise AssertionError(
+            f"jet_softmax_values {shape}: not the {'tiled' if production else 'plane-streaming'} kernel")
+    sv_bound = bound(4 * elems * 4, core_flops, rates)
+    results["jet_softmax_values"] = against(dict(
+        **err,
+        ms=cuda_ms(lambda: ja.softmax_values(qkv, batch, tokens, HEADS, c, e)),
+        plain_ms=cuda_ms(lambda: ja.softmax_values_plain(qkv, batch, tokens, HEADS, c, e), reps=5),
+        bound_ms=sv_bound[0], bound_by=sv_bound[1], library_ms=None,
+    ))
+    del qkv
+    torch.cuda.empty_cache()
+    return results
 
 
 def phase_kernels(device, rates) -> dict:
     """Each kernel against its plain version at production shapes, both modes."""
-    from deephall_tpu_torch.ops import jet_attention as ja
-    from deephall_tpu_torch.ops import jet_layernorm as jl
-
     results = {}
     for c, e in MODES:
-        gen = torch.Generator(device=device).manual_seed(1000 + c)
-        planes = c + e + 2
-        rows = BATCH * TOKENS
-        elems = planes * rows * FEAT
         mode = f"C{c}E{e}"
-
-        t = random_jet(gen, c, e, device)
-        r = random_jet(gen, c, e, device)
-        p_ln = {
-            "scale": torch.randn(FEAT, generator=gen, device=device) * 0.3 + 1.0,
-            "bias": torch.randn(FEAT, generator=gen, device=device) * 0.1,
-        }
-        before = jl.layernorm_jet.launches_streamed
-        err = compare(
-            f"jet_layernorm {mode}",
-            tuple(jl.layernorm_jet(p_ln, t, residual=r)),
-            tuple(jl.layernorm_jet_plain(p_ln, t, residual=r)),
-            KERNEL_TOL,
-        )
-        if jl.layernorm_jet.launches_streamed != before + 1:
-            raise AssertionError(f"jet_layernorm {mode}: not the streamed kernel")
-        # The generic kernel, at a shape the streamed one does not take.
-        generic = compare(
-            f"jet_layernorm {mode} without a residual",
-            tuple(jl.layernorm_jet(p_ln, t)),
-            tuple(jl.layernorm_jet_plain(p_ln, t)),
-            KERNEL_TOL,
-        )
-        if jl.layernorm_jet.launches_streamed != before + 1:
-            raise AssertionError(f"jet_layernorm {mode} without a residual: not the generic kernel")
-        # Read the jet and the residual, write the output; about a dozen flops
-        # per element (add, centre, variance products, output expansion).
-        ln_bound = bound(3 * elems * 4 + 2 * FEAT * 4, 12 * elems, rates)
-        results[("jet_layernorm", mode)] = against(dict(
-            **err,
-            ms=cuda_ms(lambda: jl.layernorm_jet(p_ln, t, residual=r), calls=LN_CALLS),
-            single_call_ms=cuda_ms(lambda: jl.layernorm_jet(p_ln, t, residual=r)),
-            plain_ms=cuda_ms(lambda: jl.layernorm_jet_plain(p_ln, t, residual=r), reps=5),
-            bound_ms=ln_bound[0], bound_by=ln_bound[1], library_ms=None,
-            # What the card gives a plain pass over the same bytes (two reads, one write).
-            same_bytes_add_ms=same_bytes_add_ms(planes, device),
-            generic_no_residual_ms=cuda_ms(lambda: jl.layernorm_jet(p_ln, t), calls=LN_CALLS),
-            generic_no_residual_max_rel_err=generic["max_rel_err"],
-        ))
-        del r
-
-        p = attention_params(gen, device)
-        att_bytes, core_flops, proj_flops = ja.attention_work(BATCH, TOKENS, FEAT, HEADS, c, e)
-        err = compare(
-            f"jet_attention {mode}",
-            tuple(ja.attention_jet(p, HEADS, t)),
-            tuple(ja.attention_jet_plain(p, HEADS, t)),
-            KERNEL_TOL,
-        )
-        att_bound = bound(att_bytes, core_flops, rates, proj_flops)
-        results[("jet_attention", mode)] = against(dict(
-            **err,
-            ms=cuda_ms(lambda: ja.attention_jet(p, HEADS, t)),
-            plain_ms=cuda_ms(lambda: ja.attention_jet_plain(p, HEADS, t), reps=5),
-            bound_ms=att_bound[0], bound_by=att_bound[1], library_ms=None,
-        ))
-
-        stacked = torch.cat([t.x[None], t.j, t.l[None], t.d]).reshape(planes * rows, FEAT)
-        del t
-        m = planes * rows
-        for width, key in ((3 * FEAT, "jet_gemm"), (FEAT, "jet_gemm_out")):
-            w = torch.randn(FEAT, width, generator=gen, device=device) / math.sqrt(FEAT)
-            b = torch.randn(width, generator=gen, device=device) * 0.1
-            split = ja.split_weight(w)
-            before = ja.jet_gemm.launches_tensor_core
-            out = ja.jet_gemm(stacked, split, b, rows)
-            if ja.jet_gemm.launches_tensor_core != before + 1:
-                raise AssertionError(f"jet_gemm {mode} N={width}: not on the tensor cores")
-            err = compare(f"jet_gemm {mode} N={width}", out, ja.jet_gemm_plain(stacked, w, b, rows), KERNEL_TOL)
-            gemm_bound = bound((m * FEAT + FEAT * width + width + m * width) * 4, 0,
-                               rates, 2 * m * FEAT * width)
-            results[(key, mode)] = against(dict(
-                **err,
-                ms=cuda_ms(lambda: ja.jet_gemm(stacked, split, b, rows)),
-                plain_ms=cuda_ms(lambda: ja.jet_gemm_plain(stacked, w, b, rows)),
-                bound_ms=gemm_bound[0], bound_by=gemm_bound[1],
-                library_ms=cuda_ms(lambda: torch.matmul(stacked, w)),
-                cuda_core_ms=cuda_ms(lambda: ja.jet_gemm(stacked, w, b, rows), reps=3),
-            ))
-            if width == 3 * FEAT:
-                qkv = out
-            del out
-        del stacked
-
-        err = compare(
-            f"jet_softmax_values {mode}",
-            ja.softmax_values(qkv, BATCH, TOKENS, HEADS, c, e),
-            ja.softmax_values_plain(qkv, BATCH, TOKENS, HEADS, c, e),
-            KERNEL_TOL,
-        )
-        sv_bound = bound(4 * elems * 4, core_flops, rates)
-        results[("jet_softmax_values", mode)] = against(dict(
-            **err,
-            ms=cuda_ms(lambda: ja.softmax_values(qkv, BATCH, TOKENS, HEADS, c, e)),
-            plain_ms=cuda_ms(lambda: ja.softmax_values_plain(qkv, BATCH, TOKENS, HEADS, c, e), reps=5),
-            bound_ms=sv_bound[0], bound_by=sv_bound[1], library_ms=None,
-        ))
-        del qkv
-        torch.cuda.empty_cache()
-        for (name, mode_), row in results.items():
-            if mode_ == mode:
-                emit(phase="kernel", kernel=name, mode=mode, **row)
+        for name, row in kernel_rows(device, rates, c, e).items():
+            results[(name, mode)] = row
+            emit(phase="kernel", kernel=name, mode=mode, **row)
     return results
 
 
@@ -589,8 +643,9 @@ def path_agreement(model, system, data) -> tuple[dict, list]:
     return report, bad
 
 
-def restored_model(ckpt: Path, device):
-    """The prod_r4 configuration and a model on ``device`` with ``ckpt``'s parameters."""
+def restored_model(ckpt: Path, device, config: Path = REPO / "artifacts/prod_r4/config.yml"):
+    """The configuration (prod_r4's unless ``config`` names another) and a model
+    on ``device`` with ``ckpt``'s parameters."""
     import yaml
 
     from deephall_tpu_torch.config import Config
@@ -598,7 +653,7 @@ def restored_model(ckpt: Path, device):
     from deephall_tpu_torch.networks import make_network
     from deephall_tpu_torch.weights import load_flax
 
-    cfg = Config.from_dict(yaml.safe_load((REPO / "artifacts/prod_r4/config.yml").read_text()))
+    cfg = Config.from_dict(yaml.safe_load(config.read_text()))
     _, state, _ = LogManager.restore_checkpoint(ckpt)
     model = make_network(cfg.system, cfg.network)
     load_flax(model, state.params)
@@ -715,17 +770,17 @@ def relative_l2(got: dict, want: dict) -> float:
 
 def training_paths(model, stale_model, system, data) -> dict:
     """``{path: {observable: per-walker values}}`` for the kernels, the plain
-    versions, the plain versions in float64 and the plain versions with
-    ``stale_model``'s weights."""
+    versions, the plain versions in float64 and, unless ``stale_model`` is
+    None, the plain versions with its weights."""
     from deephall_tpu_torch.hamiltonian import forward_laplacian_local_energy
 
+    routes = [("kernels", model, True, data), ("plain", model, False, data),
+              ("float64", copy.deepcopy(model).double(), False, data.double())]
+    if stale_model is not None:
+        routes.append(("stale", stale_model, False, data))
     out = {}
     with torch.no_grad():
-        for name, net, kernels, x in (
-            ("kernels", model, True, data), ("plain", model, False, data),
-            ("float64", copy.deepcopy(model).double(), False, data.double()),
-            ("stale", stale_model, False, data),
-        ):
+        for name, net, kernels, x in routes:
             el, obs = forward_laplacian_local_energy(net, system, kernels=kernels)(x)
             out[name] = {"energy": el, **obs}
     return out
@@ -754,12 +809,14 @@ def training_agreement(paths: dict) -> dict:
             kernels_vs_plain_median_dev_rel=(vals["kernels"] - vals["plain"]).abs().median().item() / rms,
             kernels_vs_float64_mean_shift_sem=abs(mean["kernels"] - mean["float64"]) / max(sem, 1e-30),
             plain_vs_float64_mean_shift_sem=abs(mean["plain"] - mean["float64"]) / max(sem, 1e-30),
-            stale_vs_plain_median_dev_rel=(vals["stale"] - vals["plain"]).abs().median().item() / rms,
             **{f"{name}_vs_float64_median_dev_rel": (vals[name] - truth).abs().median().item() / rms
                for name in ("kernels", "plain")},
             **{f"{name}_vs_float64_mean_shift_rel": abs(mean[name] - mean["float64"]) / rms
                for name in ("kernels", "plain")},
         )
+        if "stale" in vals:
+            report[key]["stale_vs_plain_median_dev_rel"] = (
+                (vals["stale"] - vals["plain"]).abs().median().item() / rms)
     return report
 
 
@@ -995,13 +1052,16 @@ def phase_slice_excited(workdir: Path) -> dict:
     return counts
 
 
-def launches_per_local_energy(layers: int = 2) -> dict:
+def launches_per_local_energy(layers: int = 2, production: bool = True) -> dict:
     """Each kernel's launches in one local energy of the production Psiformer;
-    every launch of the production shapes takes the kernel built for them."""
+    every launch of the production shapes (N = 6) takes the kernel built for
+    them, and at any other N (``production`` false) the generic LayerNorm and
+    the plane-streaming softmax/values kernel take every launch."""
+    built = int(production)
     return {
         "jet_layernorm": 2 * layers, "jet_attention": layers, "jet_gemm": 2 * layers,
         "jet_softmax_values": layers, "jet_gemm_tensor_core": 2 * layers,
-        "jet_softmax_values_tiled": layers, "jet_layernorm_streamed": 2 * layers,
+        "jet_softmax_values_tiled": built * layers, "jet_layernorm_streamed": built * 2 * layers,
     }
 
 
@@ -2124,6 +2184,186 @@ def phase_tools(workdir: Path, smi: str) -> dict:
     return tools_counts
 
 
+def n10_argv(workdir: Path, device, optimizer: str, iterations: int, *extra: str) -> list[str]:
+    """The training CLI on the N = 10 production state (its config and checkpoint)."""
+    return ["--device", str(device), "--yml", str(N10 / "config.yml"),
+            f"optim.optimizer={optimizer}", f"log.restore_path={N10_CKPT}",
+            f"log.save_path={workdir}", f"optim.iterations={iterations}", *extra]
+
+
+def history_numbers(history: list) -> dict:
+    energies = np.array([row["energy"].real for row in history])
+    step_times = [row["step_time"] for row in history]
+    return dict(
+        iterations=len(history),
+        mean_energy=float(energies.mean()),
+        energy_sem=float(energies.std(ddof=1) / math.sqrt(len(energies))),
+        energies=energies.tolist(),
+        mean_l_square=float(np.mean([row["angular_momentum_square"] for row in history])),
+        l_squares=[row["angular_momentum_square"] for row in history],
+        finite=bool(np.isfinite(energies).all()),
+        step_time_median_ms=statistics.median(step_times) * 1e3,
+    )
+
+
+def counted_run(fn, *args) -> tuple:
+    """``fn(*args)`` with the launch counters from 0 and the peak memory reset:
+    its result, its counts, its seconds and its peak memory in GB."""
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    result = fn(*args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    return result, launch_counts(), wall, torch.cuda.max_memory_allocated() / 1e9
+
+
+def large_n_paths(model, system, data) -> dict:
+    """The local energy of ``data`` through the kernels, the plain versions and
+    float64, with the gates of phases ``end_to_end`` and ``train``: the kernel
+    path within END_TO_END_TOL of the plain path's RMS (batch mean and median
+    walker), its mean within MEAN_SHIFT_SEM of float64's standard error, and
+    no farther from float64 than ``float64_gate`` allows."""
+    fields = training_agreement(training_paths(model, None, system, data))
+    if not system.compute_l2:  # L^2 is NaN on every path
+        del fields["angular_momentum_square"]
+    bad = [k for k, v in fields.items()
+           if not (v["kernels_vs_plain_mean_shift_rel"] <= END_TO_END_TOL
+                   and v["kernels_vs_plain_median_dev_rel"] <= END_TO_END_TOL
+                   and v["kernels_vs_float64_mean_shift_sem"] <= MEAN_SHIFT_SEM)]
+    if system.compute_l2:
+        bad += float64_gate(fields)
+    else:
+        bad += [k for k, v in fields.items()
+                if not v["kernels_vs_float64_median_dev_rel"]
+                <= MEDIAN_VS_PLAIN * v["plain_vs_float64_median_dev_rel"]]
+    return dict(walkers=int(data.shape[0]), compute_l2=system.compute_l2, fields=fields, bad=bad)
+
+
+def phase_large_n(workdir: Path, device, smi: str) -> tuple[dict, dict]:
+    """Kernels and production states beyond N = 6; returns the kernel rows by
+    shape and the launches of the phase's runs of the program.  Every part runs
+    even when one before it failed, and the phase's line reports them all."""
+    import traceback
+
+    from deephall_tpu_torch import train
+    from deephall_tpu_torch.log import LogManager
+
+    rates = peaks(torch.cuda.get_device_name(0))
+    start = time.perf_counter()
+    failures: list = []
+    report: dict = {"kernels": {}, "runs": {}, "paths": {}}
+    kernels: dict = {}
+    counts: dict = {}
+
+    def guarded(name: str, fn, *args) -> None:
+        try:
+            fn(*args)
+        except Exception:  # noqa: BLE001 - recorded and raised after the phase's line
+            failures.append(f"{name}: {traceback.format_exc()[-1500:]}")
+
+    def add_counts(run_counts: dict) -> None:
+        for k, v in run_counts.items():
+            counts[k] = counts.get(k, 0) + v
+
+    def shape_rows(n: int, c: int, e: int):
+        rows = kernel_rows(device, rates, c, e, tokens=n)
+        kernels[f"N{n}C{c}E{e}"] = rows
+        for key, row in rows.items():
+            emit(phase="large_n_kernel", kernel=key, n=n, c=c, e=e, **row)
+
+    def cli_run(name: str, iterations: int, optimizer: str, steps: int, *extra: str) -> None:
+        save = workdir / "large_n" / name
+        history, run_counts, wall, peak = counted_run(
+            train.cli, n10_argv(save, device, optimizer, steps, *extra))
+        add_counts(run_counts)
+        expected = {k: iterations * v for k, v in launches_per_local_energy(production=False).items()}
+        report["runs"][name] = dict(**history_numbers(history), wall_s=wall, peak_memory_gb=peak,
+                                    launches=run_counts, expected_launches=expected)
+        if len(history) != iterations or not report["runs"][name]["finite"]:
+            raise AssertionError(f"{name}: {len(history)} iterations of {iterations}, or non-finite")
+        if run_counts != expected:
+            raise AssertionError(f"{name}: launch counts {run_counts} != expected {expected}")
+
+    def n10_inference():
+        cli_run("n10_inference", N10_ITERATIONS, "none", N10_ITERATIONS, "mcmc.burn_in=10")
+        mean = report["runs"]["n10_inference"]["mean_energy"]
+        if not abs(mean - N10_ENERGY) <= N10_TOL:
+            raise AssertionError(f"n10_inference: mean energy {mean} not within {N10_TOL} of {N10_ENERGY}")
+
+    def n10_l2():
+        cli_run("n10_inference_l2", N10_L2_ITERATIONS, "none", N10_L2_ITERATIONS,
+                "mcmc.burn_in=10", "system.compute_l2=true")
+        l2 = report["runs"]["n10_inference_l2"]["mean_l_square"]
+        if not l2 < N10_L2_MAX:
+            raise AssertionError(f"n10_inference_l2: mean L^2 {l2} not < {N10_L2_MAX}")
+
+    def n10_kfac():
+        cli_run("n10_kfac", N10_KFAC_ITERATIONS, "kfac", N10_RESUME_STEP + N10_KFAC_ITERATIONS)
+        run = report["runs"]["n10_kfac"]
+        last = workdir / "large_n" / "n10_kfac" / f"ckpt_{N10_RESUME_STEP + N10_KFAC_ITERATIONS - 1:06d}.npz"
+        _, final, _ = LogManager.restore_checkpoint(last)
+        run["kfac_step_exit"] = int(final.opt_state.step)
+        run["kfac_weight_exit"] = float(final.opt_state.weight)
+        if run["kfac_step_exit"] != N10_RESUME_STEP + N10_KFAC_ITERATIONS:
+            raise AssertionError(f"n10_kfac: KfacState step {run['kfac_step_exit']}: not the stored curvature")
+        if not abs(run["mean_energy"] - N10_ENERGY) <= N10_KFAC_TOL:
+            raise AssertionError(f"n10_kfac: mean energy {run['mean_energy']} not within {N10_KFAC_TOL}")
+
+    def n10_paths():
+        cfg, model, state = restored_model(N10_CKPT, device, N10 / "config.yml")
+        model.requires_grad_(False)
+        data = torch.as_tensor(state.data[:HESSIAN_WALKERS], device=device)
+        for compute_l2 in (True, False):
+            cfg.system.compute_l2 = compute_l2
+            name = "n10_l2" if compute_l2 else "n10_lean"
+            report["paths"][name] = large_n_paths(model, cfg.system, data)
+            if report["paths"][name]["bad"]:
+                raise AssertionError(f"paths {name}: off in {report['paths'][name]['bad']}")
+
+    def n12_block():
+        tools = script_module("torch_production_block")
+        cfg, block, state, _, pmoves, t = tools.build_production_block(
+            True, N12_ITERATIONS, device, nelec=N12_NELEC, flux=N12_FLUX)
+        (state, _, _, stats, pmove), run_counts, wall, peak = counted_run(
+            block, state, pmoves, t, N12_ITERATIONS)
+        add_counts(run_counts)
+        rows = train.host_rows(stats, pmove)
+        for row in rows:
+            row["step_time"] = wall / N12_ITERATIONS
+        expected = {k: N12_ITERATIONS * v for k, v in launches_per_local_energy(production=False).items()}
+        report["runs"]["n12_block"] = dict(**history_numbers(rows), wall_s=wall, peak_memory_gb=peak,
+                                           launches=run_counts, expected_launches=expected)
+        paths = large_n_paths(state.params, cfg.system, state.data)
+        report["paths"]["n12_l2"] = paths
+        if len(rows) != N12_ITERATIONS or not report["runs"]["n12_block"]["finite"]:
+            raise AssertionError("n12_block: missing iterations or non-finite energy")
+        if run_counts != expected:
+            raise AssertionError(f"n12_block: launch counts {run_counts} != expected {expected}")
+        if paths["bad"]:
+            raise AssertionError(f"n12_block: the kernel path is off in {paths['bad']}")
+
+    for n, c, e in LARGE_N_SHAPES:
+        guarded(f"kernels N{n}C{c}E{e}", shape_rows, n, c, e)
+    report["kernels"] = {key: {k: {f: row[f] for f in ("ms", "plain_ms", "bound_ms", "max_rel_err")}
+                               for k, row in rows.items()} for key, rows in kernels.items()}
+    guarded("n10_inference", n10_inference)
+    guarded("n10_inference_l2", n10_l2)
+    guarded("n10_kfac", n10_kfac)
+    guarded("n10_paths", n10_paths)
+    guarded("n12_block", n12_block)
+    emit(phase="large_n", nvidia_smi=smi, seconds=time.perf_counter() - start, batch=BATCH,
+         launches=counts, failures=failures, **report)
+    for name, run in report["runs"].items():
+        print(f"large_n: {name} {run['iterations']} iterations, mean energy {run['mean_energy']:.5f} "
+              f"+- {run['energy_sem']:.5f}, L^2 {run['mean_l_square']:.4f}, "
+              f"{run['step_time_median_ms']:.1f} ms an iteration, peak {run['peak_memory_gb']:.2f} GB "
+              f"on {smi}", flush=True)
+    if failures:
+        raise AssertionError(f"large_n: {failures}")
+    return kernels, counts
+
+
 def main() -> int:
     if len(sys.argv) > 2 and sys.argv[1] == "--rank-child":
         return rank_child(sys.argv[2], sys.argv[3:])
@@ -2179,6 +2419,7 @@ def main() -> int:
         trace_counts = phase_trace(Path(workdir), smi)
         roton_counts = phase_magnetoroton(Path(workdir), smi)
         tools_counts = phase_tools(Path(workdir), smi)
+        large_kernels, large_counts = phase_large_n(Path(workdir), device, smi)
 
     sources = {
         "jet_layernorm": ("deephall_tpu_torch/csrc/jet_layernorm.cu", "deephall_tpu/ops/jet_layernorm.py:58"),
@@ -2197,7 +2438,10 @@ def main() -> int:
                    launches_trace=trace_counts[kernel],
                    launches_magnetoroton=roton_counts[kernel],
                    launches_tools=tools_counts[kernel],
+                   launches_large_n=large_counts[kernel],
                    **table_numbers(kernels[(kernel, mode)]))
+        # The same kernel beyond N = 6 (phase large_n), by shape.
+        row["large_n"] = {shape: table_numbers(rows[kernel]) for shape, rows in large_kernels.items()}
         if kernel == "jet_layernorm":
             row["launches_streamed"] = counts["jet_layernorm_streamed"]
         if kernel == "jet_gemm":

@@ -9,13 +9,13 @@
 //
 //   1. jet_gemm: rows[P*B*T, D] @ Wqkv[D, 3D], bias on the primal rows only
 //      (1/sqrt(dh) folded into wq and bq by the caller);
-//   2. jet_softmax_values: one block per (walker, head); the head's q, k, v
-//      slices of every plane sit in shared memory, and the logits jet, the
-//      softmax jet and the value-contraction jet are computed there;
+//   2. jet_softmax_values: one block per (walker, head) computes the logits
+//      jet, the softmax jet and the value-contraction jet of that head's
+//      q, k, v slices in shared memory;
 //   3. jet_gemm: attn[P*B*T, D] @ Wo[D, D], bias on the primal rows only.
 //
-// Each of the two has a kernel designed for this card and a generic one that
-// takes every shape; the caller picks by shape before the launch.
+// Each of the two has a kernel designed for the production shapes and one
+// that takes the others; the caller picks by shape before the launch.
 //
 // jet_gemm on the tensor cores (jet_gemm_tf32x3_kernel).  The local energy
 // needs float32 products (the TPU kernel runs them at Precision.HIGHEST), and
@@ -56,7 +56,17 @@
 // (q_k.k_k, e_k*r_k, w_k.v_k) are work items of their own, so no thread
 // waits on the l plane: the logits are 6x6 blocks per (plane pair, quarter
 // of dh) held in registers, the value contraction 6 x 4 blocks per (plane,
-// 16-byte feature chunk).  Other shapes go to jet_softmax_values_kernel.
+// 16-byte feature chunk).  Its double-buffered stage of every plane needs
+// 368 KB at N = 10 (T = 10, P = 28), so it is compiled for T = 6 alone.
+//
+// jet_softmax_values at every other shape (jet_softmax_values_planes_kernel).
+// Keeping q, k, v of every plane resident (3 P T (dh + 1) floats) would pass
+// the card's 227 KB at N = 10 with L^2 (254 KB) and at every N = 12.  Each
+// tangent and extra plane needs only its own q, k, v and the primal's, so the
+// planes are streamed through a buffer of four, and shared memory holds the
+// primal, that buffer and the [P][T][T] jets: 92 KB at N = 16 with L^2.
+// Bound by bytes as the tiled kernel; the products are read from shared
+// memory by scalar loads.
 //
 // Plane order everywhere: 0 = x, 1..C = j, C+1 = l, C+2..C+1+E = d; the first
 // lap = C - E tangents are the Laplacian directions.
@@ -387,104 +397,175 @@ __global__ void __launch_bounds__(GEMM_THREADS) jet_gemm_kernel(
   }
 }
 
-constexpr int SV_THREADS = 256;
+// ---- jet_softmax_values at any shape: planes streamed through shared memory --------
 
-__device__ __forceinline__ float dot(const float* a, const float* b, int n) {
-  float s = 0.f;
-  for (int f = 0; f < n; ++f) s = fmaf(a[f], b[f], s);
-  return s;
+namespace sv_planes {
+
+constexpr int THREADS = 256;
+constexpr int CHUNK = 4;  // planes of q and k (or of v) a block holds at once
+
+// Offsets in floats of the shared-memory layout of one (walker, head).
+struct Layout {
+  int ld, q0, k0, v0, qc, kc, m, s, r, cmax, total;
+};
+
+// The primal q, k, v as [T][dh + 1] (the padding keeps rows in distinct
+// banks); a chunk of CHUNK planes of q and of k, [CHUNK][T][dh + 1] each (the
+// value pass holds CHUNK planes of v in the first and its cross sums,
+// [1 + E][T][dh], in the second); the logits / exponential / weights jet M as
+// [P][T][T]; the sum and reciprocal jets S, R as [P][T]; the row maxima [T].
+// ops/jet_attention.py:softmax_values_smem mirrors this sum.
+__host__ __device__ inline Layout layout(int P, int T, int dh, int E) {
+  Layout a;
+  a.ld = dh + 1;
+  const int row = T * a.ld;
+  const int chunk = CHUNK * row;
+  const int sums = (1 + E) * T * dh;
+  a.q0 = 0;
+  a.k0 = row;
+  a.v0 = 2 * row;
+  a.qc = 3 * row;
+  a.kc = a.qc + chunk;
+  a.m = a.kc + (chunk > sums ? chunk : sums);
+  a.s = a.m + P * T * T;
+  a.r = a.s + P * T;
+  a.cmax = a.r + P * T;
+  a.total = a.cmax + T;
+  return a;
 }
 
 // One block per (walker, head).  qkv: [P, B, T, 3D] (q | k | v along the last
-// axis); attn: [P, B, T, D].  Shared memory: q, k, v as [P][T][dh + 1] (the
-// padding keeps rows in distinct banks), then the logits jet G, the
-// exponential jet X, the weights jet W as [P][T][T], and the sum S and
-// reciprocal R jets as [P][T].
-__global__ void __launch_bounds__(SV_THREADS) jet_softmax_values_kernel(
-    const float* __restrict__ qkv, float* __restrict__ attn, int P, int64_t batch,
-    int T, int D, int H, int C, int E) {
+// axis); attn: [P, B, T, D].  Two passes over the planes, CHUNK at a time in
+// plane order: the logits pass reads each plane's q and k once, the value
+// pass each plane's v once, and only the primal's q, k, v and the [P][T][T]
+// jets stay resident, so shared memory grows with P T^2 + T dh.  In the
+// logits pass a thread owns a (query, source) pair for every plane and keeps
+// the l and d planes' cross sums q_k.k_k in M until their own plane arrives;
+// in the value pass it owns a (query, feature) pair and keeps w_k.v_k in the
+// cross sums.  Each sum is taken by one thread in plane order.
+__global__ void __launch_bounds__(THREADS) jet_softmax_values_planes_kernel(
+    const float* __restrict__ qkv, float* __restrict__ attn, int P, int64_t batch, int T,
+    int D, int H, int C, int E) {
   extern __shared__ float smem[];
   const int dh = D / H;
-  const int ld = dh + 1;
+  const Layout L = layout(P, T, dh, E);
+  const int ld = L.ld;
   const int lap = C - E;
+  const int TT = T * T;
   const int64_t b = blockIdx.x / H;
   const int h = blockIdx.x % H;
-  float* qs = smem;
-  float* ks = qs + P * T * ld;
-  float* vs = ks + P * T * ld;
-  float* G = vs + P * T * ld;
-  float* X = G + P * T * T;
-  float* W = X + P * T * T;
-  float* S = W + P * T * T;
-  float* R = S + P * T;
   const int tid = threadIdx.x;
+  float* q0 = smem + L.q0;
+  float* k0 = smem + L.k0;
+  float* v0 = smem + L.v0;
+  float* qc = smem + L.qc;
+  float* kc = smem + L.kc;
+  float* M = smem + L.m;
+  float* S = smem + L.s;
+  float* R = smem + L.r;
+  float* cmax = smem + L.cmax;
+  // Row t of plane p's q slice; k and v follow at +D and +2D.
+  auto row = [&](int p, int t) {
+    return qkv + ((static_cast<int64_t>(p) * batch + b) * T + t) * 3 * D + h * dh;
+  };
 
-  for (int i = tid; i < P * T * dh; i += SV_THREADS) {
-    const int p = i / (T * dh), t = (i / dh) % T, f = i % dh;
-    const int64_t row = (static_cast<int64_t>(p) * batch + b) * T + t;
-    const float* src = qkv + row * 3 * D + h * dh + f;
-    const int o = (p * T + t) * ld + f;
-    qs[o] = src[0];
-    ks[o] = src[D];
-    vs[o] = src[2 * D];
+  for (int i = tid; i < T * dh; i += THREADS) {
+    const int t = i / dh, f = i % dh;
+    const float* src = row(0, t) + f;
+    q0[t * ld + f] = src[0];
+    k0[t * ld + f] = src[D];
+    v0[t * ld + f] = src[2 * D];
   }
-  __syncthreads();
+  for (int i = tid; i < (1 + E) * TT; i += THREADS) M[(C + 1) * TT + i] = 0.f;
 
-#define QROW(p, t) (qs + ((p) * T + (t)) * ld)
-#define KROW(p, s) (ks + ((p) * T + (s)) * ld)
-#define VROW(p, s) (vs + ((p) * T + (s)) * ld)
-#define AT(A, p, t, s) A[((p) * T + (t)) * T + (s)]
-
-  // Logits jet: product rule, plus the cross term over the Laplacian tangents
-  // (l plane) or over the matching extra tangent (d planes).
-  for (int i = tid; i < P * T * T; i += SV_THREADS) {
-    const int p = i / (T * T), t = (i / T) % T, s = i % T;
-    float g = dot(QROW(p, t), KROW(0, s), dh);
-    if (p > 0) g += dot(QROW(0, t), KROW(p, s), dh);
-    if (p == C + 1) {
-      float cross = 0.f;
-      for (int k = 0; k < lap; ++k) cross += dot(QROW(1 + k, t), KROW(1 + k, s), dh);
-      g += 2.f * cross;
-    } else if (p > C + 1) {
-      const int k = 1 + lap + (p - C - 2);
-      g += 2.f * dot(QROW(k, t), KROW(k, s), dh);
+  // Logits jet: G_p = q_p.k_0 + q_0.k_p, plus twice the cross term over the
+  // Laplacian tangents (l plane) or over the matching extra tangent (d planes).
+  for (int p0 = 0; p0 < P; p0 += CHUNK) {
+    const int np = P - p0 < CHUNK ? P - p0 : CHUNK;
+    __syncthreads();
+    for (int i = tid; i < np * T * dh; i += THREADS) {
+      const int j = i / (T * dh), t = (i / dh) % T, f = i % dh;
+      const float* src = row(p0 + j, t) + f;
+      qc[(j * T + t) * ld + f] = src[0];
+      kc[(j * T + t) * ld + f] = src[D];
     }
-    AT(G, p, t, s) = g;
+    __syncthreads();
+    for (int i = tid; i < TT; i += THREADS) {
+      const int t = i / T, s = i % T;
+      const float* qx = q0 + t * ld;
+      const float* kx = k0 + s * ld;
+      float a[CHUNK], g[CHUNK], cross[CHUNK];
+#pragma unroll
+      for (int j = 0; j < CHUNK; ++j) a[j] = g[j] = cross[j] = 0.f;
+      for (int f = 0; f < dh; ++f) {
+        const float q = qx[f], k = kx[f];
+#pragma unroll
+        for (int j = 0; j < CHUNK; ++j) {
+          const float qp = qc[(j * T + t) * ld + f], kp = kc[(j * T + s) * ld + f];
+          a[j] = fmaf(qp, k, a[j]);
+          g[j] = fmaf(q, kp, g[j]);
+          cross[j] = fmaf(qp, kp, cross[j]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < CHUNK; ++j) {
+        const int p = p0 + j;
+        if (p >= P) break;
+        float* m = M + p * TT + i;
+        if (p == 0) {
+          *m = a[j];
+        } else if (p <= C) {
+          *m = a[j] + g[j];
+          const int k = p - 1;
+          if (k < lap) {
+            M[(C + 1) * TT + i] += cross[j];
+          } else {
+            M[(C + 2 + k - lap) * TT + i] = cross[j];
+          }
+        } else {
+          *m = a[j] + g[j] + 2.f * *m;
+        }
+      }
+    }
   }
   __syncthreads();
 
-  // exp jet of the max-shifted logits (the shift is a constant and cancels).
-  for (int i = tid; i < T * T; i += SV_THREADS) {
-    const int t = i / T, s = i % T;
-    float c0 = AT(G, 0, t, 0);
-    for (int s2 = 1; s2 < T; ++s2) c0 = fmaxf(c0, AT(G, 0, t, s2));
-    const float ex = expf(AT(G, 0, t, s) - c0);
-    AT(X, 0, t, s) = ex;
+  // exp jet of the max-shifted logits (the shift is a constant and cancels),
+  // in place: a thread reads every plane of its (query, source) pair first.
+  for (int t = tid; t < T; t += THREADS) {
+    float c0 = M[t * T];
+    for (int s = 1; s < T; ++s) c0 = fmaxf(c0, M[t * T + s]);
+    cmax[t] = c0;
+  }
+  __syncthreads();
+  for (int i = tid; i < TT; i += THREADS) {
+    float* m = M + i;
+    const float ex = expf(m[0] - cmax[i / T]);
+    for (int q = 0; q < E; ++q) {
+      const float gj = m[(1 + lap + q) * TT];
+      m[(C + 2 + q) * TT] = ex * (m[(C + 2 + q) * TT] + gj * gj);
+    }
     float jsq = 0.f;
     for (int k = 0; k < C; ++k) {
-      const float gj = AT(G, 1 + k, t, s);
-      AT(X, 1 + k, t, s) = ex * gj;
+      const float gj = m[(1 + k) * TT];
+      m[(1 + k) * TT] = ex * gj;
       if (k < lap) jsq += gj * gj;
     }
-    AT(X, C + 1, t, s) = ex * (AT(G, C + 1, t, s) + jsq);
-    for (int q = 0; q < E; ++q) {
-      const float gj = AT(G, 1 + lap + q, t, s);
-      AT(X, C + 2 + q, t, s) = ex * (AT(G, C + 2 + q, t, s) + gj * gj);
-    }
+    m[(C + 1) * TT] = ex * (m[(C + 1) * TT] + jsq);
+    m[0] = ex;
   }
   __syncthreads();
 
   // Sum over the sources.
-  for (int i = tid; i < P * T; i += SV_THREADS) {
-    const int p = i / T, t = i % T;
+  for (int i = tid; i < P * T; i += THREADS) {
     float acc = 0.f;
-    for (int s = 0; s < T; ++s) acc += AT(X, p, t, s);
-    S[p * T + t] = acc;
+    for (int s = 0; s < T; ++s) acc += M[i * T + s];
+    S[i] = acc;
   }
   __syncthreads();
 
   // Reciprocal jet: f1 = -1/s^2, f2 = 2/s^3.
-  for (int i = tid; i < P * T; i += SV_THREADS) {
+  for (int i = tid; i < P * T; i += THREADS) {
     const int p = i / T, t = i % T;
     const float rx = 1.f / S[t];
     const float rx2 = rx * rx, rx3 = rx2 * rx;
@@ -492,64 +573,94 @@ __global__ void __launch_bounds__(SV_THREADS) jet_softmax_values_kernel(
     if (p == 0) {
       r = rx;
     } else if (p <= C) {
-      r = -S[p * T + t] * rx2;
+      r = -S[i] * rx2;
     } else if (p == C + 1) {
       float sq = 0.f;
       for (int k = 0; k < lap; ++k) sq += S[(1 + k) * T + t] * S[(1 + k) * T + t];
-      r = -S[p * T + t] * rx2 + 2.f * rx3 * sq;
+      r = -S[i] * rx2 + 2.f * rx3 * sq;
     } else {
       const float sj = S[(1 + lap + p - C - 2) * T + t];
-      r = -S[p * T + t] * rx2 + 2.f * rx3 * sj * sj;
+      r = -S[i] * rx2 + 2.f * rx3 * sj * sj;
     }
-    R[p * T + t] = r;
+    R[i] = r;
   }
   __syncthreads();
 
-  // Weights jet w = e * r (product rule with the cross term).
-  for (int i = tid; i < P * T * T; i += SV_THREADS) {
-    const int p = i / (T * T), t = (i / T) % T, s = i % T;
-    const float ex = AT(X, 0, t, s), rx = R[t];
-    float w = AT(X, p, t, s) * rx;
-    if (p > 0) w += ex * R[p * T + t];
-    if (p == C + 1) {
-      float cross = 0.f;
-      for (int k = 0; k < lap; ++k) cross += AT(X, 1 + k, t, s) * R[(1 + k) * T + t];
-      w += 2.f * cross;
-    } else if (p > C + 1) {
-      const int k = 1 + lap + (p - C - 2);
-      w += 2.f * AT(X, k, t, s) * R[k * T + t];
+  // Weights jet w = e * r (product rule with the cross term), in place: the
+  // l and d planes first, while the tangents still hold e.
+  for (int i = tid; i < TT; i += THREADS) {
+    const int t = i / T;
+    float* m = M + i;
+    const float ex = m[0], rx = R[t];
+    float cross = 0.f;
+    for (int k = 1; k <= lap; ++k) cross += m[k * TT] * R[k * T + t];
+    m[(C + 1) * TT] = m[(C + 1) * TT] * rx + ex * R[(C + 1) * T + t] + 2.f * cross;
+    for (int q = 0; q < E; ++q) {
+      const int k = 1 + lap + q;
+      m[(C + 2 + q) * TT] =
+          m[(C + 2 + q) * TT] * rx + ex * R[(C + 2 + q) * T + t] + 2.f * m[k * TT] * R[k * T + t];
     }
-    AT(W, p, t, s) = w;
+    for (int k = 1; k <= C; ++k) m[k * TT] = m[k * TT] * rx + ex * R[k * T + t];
+    m[0] = ex * rx;
   }
-  __syncthreads();
 
-  // Value contraction jet, written to attn[p, b, t, h*dh + f].
-  for (int i = tid; i < P * T * dh; i += SV_THREADS) {
-    const int p = i / (T * dh), t = (i / dh) % T, f = i % dh;
-    float a = 0.f;
-    for (int s = 0; s < T; ++s) a = fmaf(AT(W, p, t, s), VROW(0, s)[f], a);
-    if (p > 0) {
-      for (int s = 0; s < T; ++s) a = fmaf(AT(W, 0, t, s), VROW(p, s)[f], a);
+  // Value contraction jet W_p v_0 + W_0 v_p, plus twice the cross sums
+  // w_k.v_k, written to attn[p, b, t, h*dh + f].  The cross sums live where
+  // the k chunk was; each (query, feature) pair's belong to one thread.
+  float* vc = qc;
+  float* sums = kc;
+  const int items = T * dh;
+  for (int i = tid; i < items; i += THREADS) sums[i] = 0.f;
+  for (int p0 = 0; p0 < P; p0 += CHUNK) {
+    const int np = P - p0 < CHUNK ? P - p0 : CHUNK;
+    __syncthreads();
+    for (int i = tid; i < np * items; i += THREADS) {
+      const int j = i / items, t = (i / dh) % T, f = i % dh;
+      vc[(j * T + t) * ld + f] = row(p0 + j, t)[2 * D + f];
     }
-    if (p == C + 1) {
-      float cross = 0.f;
-      for (int k = 0; k < lap; ++k)
-        for (int s = 0; s < T; ++s) cross = fmaf(AT(W, 1 + k, t, s), VROW(1 + k, s)[f], cross);
-      a += 2.f * cross;
-    } else if (p > C + 1) {
-      const int k = 1 + lap + (p - C - 2);
-      float cross = 0.f;
-      for (int s = 0; s < T; ++s) cross = fmaf(AT(W, k, t, s), VROW(k, s)[f], cross);
-      a += 2.f * cross;
+    __syncthreads();
+    for (int i = tid; i < items; i += THREADS) {
+      const int t = i / dh, f = i % dh;
+      const float* w0 = M + t * T;
+      const float* wp[CHUNK];
+#pragma unroll
+      for (int j = 0; j < CHUNK; ++j) wp[j] = M + ((p0 + j < P ? p0 + j : P - 1) * T + t) * T;
+      float a[CHUNK], g[CHUNK], cross[CHUNK];
+#pragma unroll
+      for (int j = 0; j < CHUNK; ++j) a[j] = g[j] = cross[j] = 0.f;
+      for (int s = 0; s < T; ++s) {
+        const float v = v0[s * ld + f], w = w0[s];
+#pragma unroll
+        for (int j = 0; j < CHUNK; ++j) {
+          const float wj = wp[j][s], vj = vc[(j * T + s) * ld + f];
+          a[j] = fmaf(wj, v, a[j]);
+          g[j] = fmaf(w, vj, g[j]);
+          cross[j] = fmaf(wj, vj, cross[j]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < CHUNK; ++j) {
+        const int p = p0 + j;
+        if (p >= P) break;
+        float out = a[j];
+        if (p >= 1 && p <= C) {
+          out += g[j];
+          const int k = p - 1;
+          if (k < lap) {
+            sums[i] += cross[j];
+          } else {
+            sums[(1 + k - lap) * items + i] = cross[j];
+          }
+        } else if (p > C) {
+          out += g[j] + 2.f * sums[(p == C + 1 ? 0 : p - C - 1) * items + i];
+        }
+        attn[((static_cast<int64_t>(p) * batch + b) * T + t) * D + h * dh + f] = out;
+      }
     }
-    const int64_t row = (static_cast<int64_t>(p) * batch + b) * T + t;
-    attn[row * D + h * dh + f] = a;
   }
-#undef QROW
-#undef KROW
-#undef VROW
-#undef AT
 }
+
+}  // namespace sv_planes
 
 // ---- jet_softmax_values at compile-time shapes ---------------------------------
 
@@ -586,7 +697,7 @@ __device__ __forceinline__ int row_chunk(int p, int t, int c) {
   return (p * T + t) * DH + ((c ^ ((p & 3) << 2)) << 2);
 }
 
-// Same function and layouts as jet_softmax_values_kernel.  Persistent: block b
+// Same function and layouts as jet_softmax_values_planes_kernel.  Persistent: block b
 // takes items b, b + gridDim.x, ... of the batch * H (walker, head) pairs.
 template <int T, int DH, int C, int E>
 __global__ void __launch_bounds__(THREADS, 1) jet_softmax_values_tiled_kernel(
@@ -863,11 +974,6 @@ cudaError_t launch_tiled(const float* qkv, float* attn, int64_t batch, int heads
 
 }  // namespace sv
 
-size_t softmax_values_smem(int P, int T, int dh) {
-  return sizeof(float) * (3 * static_cast<size_t>(P) * T * (dh + 1) +
-                          3 * static_cast<size_t>(P) * T * T + 2 * static_cast<size_t>(P) * T);
-}
-
 }  // namespace
 
 // C = A @ B + bias on the first bias_rows rows.  A: [m, k], B: [k, n], C: [m, n],
@@ -893,26 +999,30 @@ extern "C" int jet_gemm_tf32x3(const float* a, const float* whi, const float* wl
   return tc::launch(a, whi, wlo, bias, c, m, n, k, bias_rows, static_cast<cudaStream_t>(stream));
 }
 
-// Logits, softmax and value-contraction jets of every (walker, head).
+// Logits, softmax and value-contraction jets of every (walker, head), at any
+// shape whose planes layout fits the card's shared memory (the caller checks
+// first: ops/jet_attention.py:check_softmax_values_shape).
 // qkv: [planes, batch, tokens, 3 * feat]; attn: [planes, batch, tokens, feat].
 extern "C" int jet_softmax_values_f32(const float* qkv, float* attn, int planes,
                                       int64_t batch, int tokens, int feat, int heads,
                                       int c, int e, void* stream) {
   if (heads <= 0 || feat % heads != 0 || e < 1 || c < e || planes != c + e + 2 ||
-      batch <= 0 || tokens <= 0 || batch * heads > 0x7fffffff) {
+      batch <= 0 || tokens <= 0 || tokens > 1024 || planes > 1024 ||
+      batch * heads > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = softmax_values_smem(planes, tokens, feat / heads);
+  const size_t smem = sizeof(float) * sv_planes::layout(planes, tokens, feat / heads, e).total;
   int device = 0, limit = 0;
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (smem > static_cast<size_t>(limit)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      jet_softmax_values_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  cudaError_t err = cudaFuncSetAttribute(sv_planes::jet_softmax_values_planes_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  jet_softmax_values_kernel<<<static_cast<unsigned>(batch * heads), SV_THREADS, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
+  sv_planes::jet_softmax_values_planes_kernel<<<static_cast<unsigned>(batch * heads),
+                                             sv_planes::THREADS, smem,
+                                             static_cast<cudaStream_t>(stream)>>>(
       qkv, attn, planes, batch, tokens, feat, heads, c, e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -26,9 +26,9 @@
 // block's rows leaves the last block's spare warps idle.
 //
 // jet_layernorm_kernel, for every other shape: one thread block per row and
-// one thread per feature, run-time C and E within a register capacity, the
-// row's reductions by warp shuffles plus a shared-memory exchange across the
-// block.
+// one thread per feature, run-time C and E within a register capacity (16,
+// 32 or 64 tangents: C <= 64 is N <= 30 with L^2), the row's reductions by
+// warp shuffles plus a shared-memory exchange across the block.
 //
 // Algebra (as the TPU kernel, with xc, jc, lc, dc the centred planes and
 // lap = C - E Laplacian tangents; means first, then centred products):
@@ -465,21 +465,26 @@ extern "C" int jet_layernorm_f32(const float* x, const float* j, const float* l,
                                  float* od, int64_t rows, int feat, int c, int e,
                                  float eps, void* stream) {
   if (feat <= 0 || feat % 32 != 0 || feat > 1024 || e < 1 || e > 4 || c < e ||
-      c > 32 || rows <= 0 || rows > 0x7fffffff) {
+      c > 64 || rows <= 0 || rows > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // Register capacity 16, 32 or 64 tangents: the smallest that holds c.
   if (feat <= 256) {
     if (c <= 16) {
       launch<16, 4, 256>(x, j, l, d, rx, rj, rl, rd, scale, bias, ox, oj, ol, od, rows, feat, c, e, eps, s);
-    } else {
+    } else if (c <= 32) {
       launch<32, 4, 256>(x, j, l, d, rx, rj, rl, rd, scale, bias, ox, oj, ol, od, rows, feat, c, e, eps, s);
+    } else {
+      launch<64, 4, 256>(x, j, l, d, rx, rj, rl, rd, scale, bias, ox, oj, ol, od, rows, feat, c, e, eps, s);
     }
   } else {
     if (c <= 16) {
       launch<16, 4, 1024>(x, j, l, d, rx, rj, rl, rd, scale, bias, ox, oj, ol, od, rows, feat, c, e, eps, s);
-    } else {
+    } else if (c <= 32) {
       launch<32, 4, 1024>(x, j, l, d, rx, rj, rl, rd, scale, bias, ox, oj, ol, od, rows, feat, c, e, eps, s);
+    } else {
+      launch<64, 4, 1024>(x, j, l, d, rx, rj, rl, rd, scale, bias, ox, oj, ol, od, rows, feat, c, e, eps, s);
     }
   }
   return static_cast<int>(cudaGetLastError());

@@ -24,7 +24,9 @@ PyTorch's TF32 switch is not involved and stays off.
 Each wrapper picks between two hand-written kernels by shape, before the
 launch: the tensor-core GEMM takes ``K % 32 == 0`` and ``N % 128 == 0``, the
 tiled core ``T = 6``, ``dh = 64`` and ``(C, E)`` in ``(15, 3)``, ``(13, 1)``;
-the generic kernels take the rest.  A jet whose four fields are adjacent views
+the generic GEMM and the plane-streaming core take the rest, the latter up to
+the shared memory of one block (:func:`check_softmax_values_shape`: T <= 25
+tokens at ``dh = 64`` in both jet modes).  A jet whose four fields are adjacent views
 of one ``[P, B, T, D]`` buffer (what the kernels return) is read with no copy;
 any other jet is stacked once.
 
@@ -173,6 +175,41 @@ def softmax_values_plain(qkv, batch: int, tokens: int, heads: int, c: int, e: in
     ).reshape(planes * batch * tokens, feat)
 
 
+# Shared memory one block may have on an H100 (opt-in), and the planes the
+# plane-streaming kernel holds at once (``csrc/jet_attention.cu:sv_planes``).
+SV_SMEM_LIMIT = 232_448
+SV_CHUNK = 4
+
+
+def softmax_values_smem(planes: int, tokens: int, head_dim: int, e: int) -> int:
+    """Bytes of shared memory of the plane-streaming kernel (``sv_planes::layout``):
+    the primal q, k, v and a chunk of q and k planes as ``[T][dh + 1]`` each,
+    the chunk of k or the value pass's ``[1 + E][T][dh]`` cross sums, the
+    ``[P][T][T]`` jet and the ``[P][T]`` sums and reciprocals, the row maxima."""
+    row = tokens * (head_dim + 1)
+    chunk = SV_CHUNK * row
+    sums = (1 + e) * tokens * head_dim
+    planes_jet = planes * tokens * tokens
+    return 4 * (3 * row + chunk + max(chunk, sums) + planes_jet + 2 * planes * tokens + tokens)
+
+
+def check_softmax_values_shape(tokens: int, feat: int, heads: int, c: int, e: int) -> None:
+    """Raise ``ValueError`` for a shape that no softmax/values kernel takes.
+
+    The plane-streaming kernel takes any ``1 <= E <= C`` and any head width
+    whose layout fits ``SV_SMEM_LIMIT``; the limit grows as ``P T^2 + T dh``
+    (91,904 bytes at N = 16 with L^2, T = 16, P = 40, dh = 64).
+    """
+    if heads <= 0 or feat % heads or not 1 <= e <= c or tokens <= 0:
+        raise ValueError(f"unsupported attention shape: D={feat}, H={heads}, C={c}, E={e}, T={tokens}")
+    need = softmax_values_smem(c + e + 2, tokens, feat // heads, e)
+    if need > SV_SMEM_LIMIT:
+        raise ValueError(
+            f"jet_softmax_values: T={tokens}, dh={feat // heads}, (C, E)=({c}, {e}) need {need} "
+            f"bytes of shared memory, past SV_SMEM_LIMIT = {SV_SMEM_LIMIT}"
+        )
+
+
 def softmax_values(qkv: torch.Tensor, batch: int, tokens: int, heads: int, c: int, e: int):
     """Attention jet core on packed planes.
 
@@ -185,15 +222,15 @@ def softmax_values(qkv: torch.Tensor, batch: int, tokens: int, heads: int, c: in
     Returns:
         ``[P*B*T, D]`` attention outputs per plane, heads concatenated.
 
-    The shapes in ``TILED_SHAPES`` go to the tiled kernel, others to the generic one.
+    The shapes in ``TILED_SHAPES`` go to the tiled kernel, others to the
+    plane-streaming one; a shape neither takes raises before the launch.
     """
     if qkv.device.type == "cpu":
         return softmax_values_plain(qkv, batch, tokens, heads, c, e)
     planes = c + e + 2
     feat = qkv.shape[-1] // 3
     require(qkv, qkv.device, (planes * batch * tokens, 3 * feat), "qkv")
-    if feat % heads or not 1 <= e <= c:
-        raise ValueError(f"unsupported attention shape: D={feat}, H={heads}, C={c}, E={e}")
+    check_softmax_values_shape(tokens, feat, heads, c, e)
     out = torch.empty((planes * batch * tokens, feat), dtype=torch.float32, device=qkv.device)
     tiled = (tokens, feat // heads, c, e) in TILED_SHAPES and _aligned(qkv, out)
     symbol = "jet_softmax_values_tiled_f32" if tiled else "jet_softmax_values_f32"

@@ -25,7 +25,7 @@ from deephall_tpu_torch.ops import fwdlap
 from deephall_tpu_torch.ops._build import check, function, require, stream
 from deephall_tpu_torch.ops.fwdlap import Jet
 
-MAX_TANGENTS = 32  # C, the register capacity of the generic kernel
+MAX_TANGENTS = 64  # C, the largest register capacity of the generic kernel (N <= 30 with L^2)
 MAX_EXTRAS = 4  # E
 STREAMED_FEAT = 256  # the shapes the streamed kernel is compiled for
 STREAMED_MODES = ((15, 3), (13, 1))  # (C, E): with L^2, without
@@ -63,6 +63,19 @@ _ARGTYPES = (_PTR,) * 14 + (
 )
 
 
+def check_shape(feat: int, c: int, e: int) -> None:
+    """Raise ``ValueError`` for a jet that neither kernel takes: the generic
+    kernel needs ``D % 32 == 0``, ``D <= 1024``, ``1 <= E <= MAX_EXTRAS`` and
+    ``E <= C <= MAX_TANGENTS``."""
+    if feat % 32 or not 0 < feat <= 1024:
+        raise ValueError(f"feature width {feat}: the kernel needs D % 32 == 0 and D <= 1024")
+    if not (1 <= e <= MAX_EXTRAS and e <= c <= MAX_TANGENTS):
+        raise ValueError(
+            f"(C, E) = ({c}, {e}): the kernel needs 1 <= E <= MAX_EXTRAS = {MAX_EXTRAS} "
+            f"and E <= C <= MAX_TANGENTS = {MAX_TANGENTS}"
+        )
+
+
 def _check_jet(t: Jet, shape, j_shape, d_shape, device, what: str) -> None:
     for name, v, want in zip(Jet._fields, t, (shape, j_shape, shape, d_shape)):
         require(v, device, want, f"{what}.{name}")
@@ -92,10 +105,7 @@ def layernorm_jet(p: dict, t: Jet, eps: float = 1e-5, residual: Jet | None = Non
     _check_jet(t, shape, j_shape, d_shape, device, "t")
     if residual is not None:
         _check_jet(residual, shape, j_shape, d_shape, device, "residual")
-    if feat % 32 or feat > 1024:
-        raise ValueError(f"feature width {feat}: the kernel needs D % 32 == 0 and D <= 1024")
-    if not (1 <= e <= MAX_EXTRAS and e <= c <= MAX_TANGENTS):
-        raise ValueError(f"(C, E) = ({c}, {e}): the kernel needs 1 <= E <= {MAX_EXTRAS}, E <= C <= {MAX_TANGENTS}")
+    check_shape(feat, c, e)
     scale, bias = p["scale"], p["bias"]
     require(scale, device, (feat,), "scale")
     require(bias, device, (feat,), "bias")

@@ -64,9 +64,14 @@ def run_layernorm(p, x, r, streamed):
 
 # 37 walkers of 6 tokens are 222 rows: no multiple of the streamed kernel's
 # rows per block.  It takes the production shapes with a residual, the generic
-# kernel everything else.
+# kernel everything else: N = 8, 10, 12 and 16 (C = 2N + E) in its 32- and
+# 64-tangent builds, and C = 35 at D = 512 in the 1,024-thread one.
 @pytest.mark.parametrize("residual", [False, True])
-@pytest.mark.parametrize("c,e,t,feat", [(13, 1, 6, 256), (15, 3, 6, 256), (17, 1, 8, 64), (5, 2, 3, 512)])
+@pytest.mark.parametrize("c,e,t,feat", [
+    (13, 1, 6, 256), (15, 3, 6, 256), (17, 1, 8, 64), (5, 2, 3, 512),
+    (19, 3, 8, 256), (21, 1, 10, 256), (23, 3, 10, 256), (25, 1, 12, 256), (27, 3, 12, 256),
+    (35, 3, 16, 256), (35, 3, 4, 512),
+])
 def test_layernorm_kernel(device, c, e, t, feat, residual):
     gen = torch.Generator(device=device).manual_seed(c + feat)
     x = random_jet(gen, device, 37, t, feat, c, e)
@@ -106,7 +111,10 @@ def test_layernorm_kernels_keep_centred_moments(device, residual):
     assert_close(got, want)
 
 
-@pytest.mark.parametrize("c,e,t,feat,heads", [(13, 1, 6, 256, 4), (15, 3, 6, 256, 4), (17, 1, 8, 64, 4)])
+@pytest.mark.parametrize("c,e,t,feat,heads", [
+    (13, 1, 6, 256, 4), (15, 3, 6, 256, 4), (17, 1, 8, 64, 4),
+    (19, 3, 8, 256, 4), (23, 3, 10, 256, 4), (27, 3, 12, 256, 4), (35, 3, 16, 256, 4),
+])
 def test_attention_kernels(device, c, e, t, feat, heads):
     gen = torch.Generator(device=device).manual_seed(c + t)
     x = random_jet(gen, device, 33, t, feat, c, e)
@@ -159,9 +167,14 @@ def test_gemm_kernels(device, m, k, n, tensor_cores):
     assert (generic - want).abs().max().item() <= TOL * want.abs().max().item()
 
 
+# The tiled kernel takes T = 6 at the production modes, the plane-streaming
+# kernel the rest: N = 8 to 16 in both modes among them.
 @pytest.mark.parametrize("c,e,t,dh,heads,batch,tiled", [
     (15, 3, 6, 64, 4, 3, True), (13, 1, 6, 64, 4, 301, True), (15, 3, 6, 64, 2, 150, True),
     (17, 1, 8, 16, 4, 33, False), (13, 1, 6, 32, 4, 33, False), (14, 2, 6, 64, 4, 33, False),
+    (19, 3, 8, 64, 4, 33, False), (21, 1, 10, 64, 4, 33, False), (23, 3, 10, 64, 4, 33, False),
+    (25, 1, 12, 64, 4, 33, False), (27, 3, 12, 64, 4, 33, False), (35, 3, 16, 64, 4, 33, False),
+    (2, 2, 3, 8, 2, 5, False),
 ])
 def test_softmax_values_kernels(device, c, e, t, dh, heads, batch, tiled):
     gen = torch.Generator(device=device).manual_seed(c + batch)
@@ -190,6 +203,17 @@ def test_kernels_refuse_what_they_do_not_take(device):
     a = torch.randn(8, 16, device=device).t()  # not contiguous
     with pytest.raises(ValueError):
         jet_attention.jet_gemm(a, torch.randn(8, 4, device=device), torch.zeros(4, device=device), 2)
+    # N = 30 with L^2: past the softmax/values kernel's shared memory, and C = 65
+    # past the LayerNorm's register capacity; both raise before any launch.
+    fn = jet_attention.softmax_values
+    before = fn.launches
+    qkv = torch.zeros(68 * 2 * 30, 3 * 256, device=device)
+    with pytest.raises(ValueError, match="SV_SMEM_LIMIT"):
+        fn(qkv, 2, 30, 4, 63, 3)
+    assert fn.launches == before
+    wide = random_jet(gen, device, 2, 3, 64, 65, 3)
+    with pytest.raises(ValueError, match="MAX_TANGENTS"):
+        jet_layernorm.layernorm_jet(p64, wide)
 
 
 def cancelling_rows(gen, m, k, n, per_row=64, keep=1e-2):

@@ -349,7 +349,8 @@ sys.path.insert(0, "scripts")
 import chip_smoke, magnetoroton_torch, torch_laughlin_pole_probe, torch_trace_summary
 import dispersion_report_torch, torch_bench_jet_attention, torch_bench_sublane_layout
 import torch_capture_trace, torch_flops_count, torch_production_block, torch_profile_step
-import torch_local_energy_timing, torch_psiformer_pole_probe
+import torch_local_energy_timing, torch_psiformer_pole_probe, torch_softmax_values_timing
+import torch_state_observables
 torch_production_block.build_production_block(False, 1, "cpu", batch=4, nelec=3, flux=4,
                                               num_layers=1, num_heads=1, heads_dim=4)
 dispersion_report_torch.sector_ed_anchor(3, 6, 1)
