@@ -6,14 +6,17 @@
 Phases, one JSON line each; any failure ends the run with a non-zero exit:
 
 1. environment: torch, the card, its power limit, the TF32 flags (both off);
-2. build: compiles ``deephall_tpu_torch/csrc/*.cu`` (one nvcc each, in parallel);
+2. build: compiles ``deephall_tpu_torch/csrc/*.cu`` (one nvcc each, in
+   parallel); ptxas must report no spill for the staged jet LayerNorm;
 3. kernels: every kernel against its plain PyTorch version at the production
    shapes (B=3360 walkers, T=6, D=256, H=4) in both jet modes, (C, E) = (15, 3)
    with L^2 and (13, 1) without, with each one's time, its plain version's
    time and its bound; ``jet_gemm`` at both of its shapes (N = 3D and N = D)
    beside ``torch.matmul``; the jet LayerNorm's streamed kernel (with a
-   residual) beside ``torch.add`` over the same bytes, and its generic kernel
-   (without a residual, which the streamed one does not take);
+   residual) and its staged kernel (without a residual, which the streamed
+   one does not take), each beside a plain pass over the same bytes
+   (``torch.add``), the staged one also beside the generic kernel on the
+   same inputs, timed in turns;
 4. slice: the inference CLI on the converged N=6 checkpoint
    (``artifacts/prod_r4``), 20 iterations at batch 3360 with L^2 on and the
    bf16 sweep; the mean energy must lie within 0.005 of 6.8681, each
@@ -145,22 +148,30 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
    ``dispersion_report_torch.py --rebuild`` on phase ``magnetoroton``'s
    directory: sector 2's row, its ED gap equal to the port's ED (1e-9), a
    finite purity;
-16. large_n: systems beyond N = 6.  Every kernel of the jet (the generic
+16. large_n: systems beyond N = 6.  Every kernel of the jet (the staged
    LayerNorm with and without a residual, the whole attention, its q/k/v
    projection on the tensor cores and the plane-streaming softmax/values
    kernel) against its plain version (2e-5) at B = 3360, D = 256, H = 4 and
    (N, C, E) = (8, 19, 3), (10, 21, 1), (10, 23, 3), (12, 25, 1), (12, 27, 3),
-   (16, 35, 3), with each one's time, its plain version's and its bound.
+   (16, 35, 3), with each one's time, its plain version's and its bound; the
+   LayerNorm beside a plain pass over the same bytes and the generic kernel
+   on the same inputs (in turns: staged, generic, generic, staged), and the
+   staged kernel's launch counter must show that it took each launch.
    The N = 10, 2Q = 27 production state (``artifacts/prod_n10_r5``) through
    the CLI: 20 inference iterations at batch 3360, the mean energy within
    0.01 of 14.27791 (``BASELINE.md``); 5 with ``system.compute_l2=true``, L^2
    < 1 (the trained state's own L^2 is 0.55); 5 KFAC iterations resuming its curvature (step 27730 to 27735),
    finite and within 0.02; each run's launches those of its local energies on
-   the generic LayerNorm and the plane-streaming kernel.  336 of its walkers
+   the staged LayerNorm and the plane-streaming kernel.  336 of its walkers
    through the kernels, the plain versions and float64 in both modes, with
    the gates of phases ``end_to_end`` and ``train``.  A fresh N = 12, 2Q = 23
    production block (seed 42, L^2 on, no checkpoint): 2 KFAC iterations,
    finite, the same launches rule, and its walkers under the same gates.
+   Last, the split of an N = 10, 2Q = 27 iteration (a fresh production
+   Psiformer, ``scripts/torch_profile_step.py --nelec 10 --flux 27``, both
+   modes): the sweep, the local energy, the forward with its two backward
+   passes, the KFAC update and the iteration in a block of 10, each finite,
+   the local energy's launches on the staged LayerNorm.
 
 The line before the last is the kernel table; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -268,6 +279,15 @@ N10_ENERGY, N10_TOL, N10_KFAC_TOL, N10_L2_MAX = 14.27791, 0.01, 0.02, 1.0
 N10_RESUME_STEP = 27730
 N10_ITERATIONS, N10_L2_ITERATIONS, N10_KFAC_ITERATIONS = 20, 5, 5
 N12_NELEC, N12_FLUX, N12_ITERATIONS = 12, 23, 2
+# The parts of an N = 10 iteration that phase large_n times (torch_profile_step.py):
+# the sweep, the local energy, the forward with its two backward passes, the
+# KFAC update, and the iteration in a block of 10.
+SPLIT_PARTS = ("sweep", "local_energy", "gradient_capture", "kfac_update", "block")
+# The numbers of each kernel row that phase large_n's line repeats.
+LARGE_N_FIELDS = ("ms", "plain_ms", "bound_ms", "max_rel_err", "generic_ms", "same_bytes_add_ms",
+                  "no_residual_ms", "no_residual_plain_ms", "no_residual_bound_ms",
+                  "no_residual_max_rel_err", "no_residual_generic_ms",
+                  "no_residual_same_bytes_add_ms")
 # The jet LayerNorm takes under half a millisecond, and the host's work before
 # its launch an eighth to a sixth of that (measured on an H100 host): it is
 # timed over this many calls in a row.
@@ -394,21 +414,80 @@ def attention_params(gen, device):
     return p
 
 
-def same_bytes_add_ms(planes: int, device, batch: int, tokens: int) -> float:
-    """Time of ``torch.add(T, R, out=O)`` on three buffers of a jet's size."""
+def same_bytes_add_ms(planes: int, device, batch: int, tokens: int, residual: bool = True) -> float:
+    """Time of ``torch.add(T, R, out=O)`` on three buffers of a jet's size (with
+    ``residual`` false ``torch.add(T, 1, out=O)``: one read and one write)."""
     t, r, out = (torch.empty(planes, batch, tokens, FEAT, device=device).fill_(i) for i in range(3))
+    if not residual:
+        return cuda_ms(lambda: torch.add(t, 1.0, out=out), calls=LN_CALLS)
     return cuda_ms(lambda: torch.add(t, r, out=out), calls=LN_CALLS)
+
+
+def layernorm_rows(device, rates, gen, c: int, e: int, t, r, production: bool) -> dict:
+    """The jet LayerNorm against its plain version on one jet shape, with a
+    residual (the streamed kernel at the production shapes, the staged one
+    elsewhere) and without (the staged one), each with its time, its plain
+    version's, its bound and a plain pass over the same bytes; where the
+    staged kernel runs, the generic kernel on the same inputs, timed in turns
+    (staged, generic, generic, staged).  Raises unless the routing rule's
+    kernel took each launch."""
+    from deephall_tpu_torch.ops import jet_layernorm as jl
+
+    fn = jl.layernorm_jet
+    batch, tokens = t.x.shape[:2]
+    planes = c + e + 2
+    elems = planes * batch * tokens * FEAT
+    shape = f"T={tokens} (C, E)=({c}, {e})"
+    p_ln = {
+        "scale": torch.randn(FEAT, generator=gen, device=device) * 0.3 + 1.0,
+        "bias": torch.randn(FEAT, generator=gen, device=device) * 0.1,
+    }
+    row = {}
+    for residual in (r, None):
+        kernel = "streamed" if production and residual is not None else "staged"
+        what = f"jet_layernorm {shape}" + ("" if residual is not None else " without a residual")
+        before = fn.launches_streamed, fn.launches_staged
+        err = compare(what, tuple(fn(p_ln, t, residual=residual)),
+                      tuple(jl.layernorm_jet_plain(p_ln, t, residual=residual)), KERNEL_TOL)
+        took = (fn.launches_streamed - before[0], fn.launches_staged - before[1])
+        if took != ((1, 0) if kernel == "streamed" else (0, 1)):
+            raise AssertionError(f"{what}: not the {kernel} kernel")
+        # Read the jet (and the residual), write the output; about a dozen
+        # flops per element (add, centre, variance products, output expansion).
+        reads = 2 if residual is not None else 1
+        ln_bound = bound((reads + 1) * elems * 4 + 2 * FEAT * 4, 12 * elems, rates)
+        numbers = dict(
+            variant=kernel, **err,
+            plain_ms=cuda_ms(lambda: jl.layernorm_jet_plain(p_ln, t, residual=residual), reps=5),
+            bound_ms=ln_bound[0], bound_by=ln_bound[1], library_ms=None,
+            # What the card gives a plain pass over the same bytes.
+            same_bytes_add_ms=same_bytes_add_ms(planes, device, batch, tokens, residual is not None),
+        )
+        routed = lambda: fn(p_ln, t, residual=residual)  # noqa: E731
+        if kernel == "staged":
+            generic = lambda: jl.layernorm_jet_generic(p_ln, t, residual=residual)  # noqa: E731
+            generic_err = compare(f"{what}, generic kernel", tuple(generic()),
+                                  tuple(jl.layernorm_jet_plain(p_ln, t, residual=residual)), KERNEL_TOL)
+            turns = [cuda_ms(f, calls=LN_CALLS) for f in (routed, generic, generic, routed)]
+            numbers.update(ms=(turns[0] + turns[3]) / 2, generic_ms=(turns[1] + turns[2]) / 2,
+                           turns_ms=turns, generic_max_rel_err=generic_err["max_rel_err"])
+        else:
+            numbers.update(ms=cuda_ms(routed, calls=LN_CALLS))
+        numbers["single_call_ms"] = cuda_ms(routed)
+        if residual is not None:
+            row.update(numbers)
+        else:
+            row.update({f"no_residual_{k}": v for k, v in numbers.items()})
+    return against(row)
 
 
 def kernel_rows(device, rates, c: int, e: int, tokens: int = TOKENS, batch: int = BATCH) -> dict:
     """Each kernel against its plain version on random inputs of one jet shape,
-    with its time, its plain version's and its bound: the jet LayerNorm with a
-    residual (the streamed kernel at the production shapes, the generic one
-    elsewhere) and without (the generic one), the whole attention, its two
-    projections on the tensor cores, and the softmax/values core (tiled at the
-    production shapes, plane-streaming elsewhere)."""
+    with its time, its plain version's and its bound: the jet LayerNorm
+    (:func:`layernorm_rows`), the whole attention, its two projections on the
+    tensor cores, and the softmax/values core (tiled at the production shapes,
+    plane-streaming elsewhere)."""
     from deephall_tpu_torch.ops import jet_attention as ja
-    from deephall_tpu_torch.ops import jet_layernorm as jl
 
     production = tokens == TOKENS and (c, e) in MODES
     gen = torch.Generator(device=device).manual_seed(1000 * tokens + c)
@@ -420,45 +499,7 @@ def kernel_rows(device, rates, c: int, e: int, tokens: int = TOKENS, batch: int 
 
     t = random_jet(gen, c, e, device, batch, tokens)
     r = random_jet(gen, c, e, device, batch, tokens)
-    p_ln = {
-        "scale": torch.randn(FEAT, generator=gen, device=device) * 0.3 + 1.0,
-        "bias": torch.randn(FEAT, generator=gen, device=device) * 0.1,
-    }
-    before = jl.layernorm_jet.launches_streamed
-    err = compare(
-        f"jet_layernorm {shape}",
-        tuple(jl.layernorm_jet(p_ln, t, residual=r)),
-        tuple(jl.layernorm_jet_plain(p_ln, t, residual=r)),
-        KERNEL_TOL,
-    )
-    if jl.layernorm_jet.launches_streamed != before + production:
-        raise AssertionError(f"jet_layernorm {shape}: not the {'streamed' if production else 'generic'} kernel")
-    # The generic kernel, at a shape the streamed one does not take.
-    generic = compare(
-        f"jet_layernorm {shape} without a residual",
-        tuple(jl.layernorm_jet(p_ln, t)),
-        tuple(jl.layernorm_jet_plain(p_ln, t)),
-        KERNEL_TOL,
-    )
-    if jl.layernorm_jet.launches_streamed != before + production:
-        raise AssertionError(f"jet_layernorm {shape} without a residual: not the generic kernel")
-    # Read the jet (and the residual), write the output; about a dozen flops
-    # per element (add, centre, variance products, output expansion).
-    ln_bound = bound(3 * elems * 4 + 2 * FEAT * 4, 12 * elems, rates)
-    generic_bound = bound(2 * elems * 4 + 2 * FEAT * 4, 12 * elems, rates)
-    results["jet_layernorm"] = against(dict(
-        **err,
-        ms=cuda_ms(lambda: jl.layernorm_jet(p_ln, t, residual=r), calls=LN_CALLS),
-        single_call_ms=cuda_ms(lambda: jl.layernorm_jet(p_ln, t, residual=r)),
-        plain_ms=cuda_ms(lambda: jl.layernorm_jet_plain(p_ln, t, residual=r), reps=5),
-        bound_ms=ln_bound[0], bound_by=ln_bound[1], library_ms=None,
-        # What the card gives a plain pass over the same bytes (two reads, one write).
-        same_bytes_add_ms=same_bytes_add_ms(planes, device, batch, tokens),
-        generic_no_residual_ms=cuda_ms(lambda: jl.layernorm_jet(p_ln, t), calls=LN_CALLS),
-        generic_no_residual_plain_ms=cuda_ms(lambda: jl.layernorm_jet_plain(p_ln, t), reps=5),
-        generic_no_residual_bound_ms=generic_bound[0],
-        generic_no_residual_max_rel_err=generic["max_rel_err"],
-    ))
+    results["jet_layernorm"] = layernorm_rows(device, rates, gen, c, e, t, r, production)
     del r
 
     p = attention_params(gen, device)
@@ -542,6 +583,20 @@ def table_numbers(row: dict) -> dict:
     and which operations (three TF32 products) goes to ``bound_detail``."""
     kind = row["bound_by"].split(" ")[0]
     return {**row, "bound_by": kind, "bound_detail": row["bound_by"]}
+
+
+def spills(lines: list[str], kernel: str) -> list[str]:
+    """Each instantiation of ``kernel`` in ptxas's lines (``-Xptxas=-v``) with its
+    spill line unless that says 0 bytes; raises if there is no instantiation."""
+    entries = [i for i, line in enumerate(lines) if "Compiling entry" in line and kernel in line]
+    if not entries:
+        raise AssertionError(f"build: no {kernel} in ptxas's output")
+    bad = []
+    for i in entries:
+        spill = next((line for line in lines[i + 1:] if "spill" in line), "")
+        if "0 bytes spill stores, 0 bytes spill loads" not in spill:
+            bad.append(f"{lines[i]}: {spill or 'no spill line'}")
+    return bad
 
 
 def launch_counts() -> dict:
@@ -1055,13 +1110,14 @@ def phase_slice_excited(workdir: Path) -> dict:
 def launches_per_local_energy(layers: int = 2, production: bool = True) -> dict:
     """Each kernel's launches in one local energy of the production Psiformer;
     every launch of the production shapes (N = 6) takes the kernel built for
-    them, and at any other N (``production`` false) the generic LayerNorm and
+    them, and at any other N (``production`` false) the staged LayerNorm and
     the plane-streaming softmax/values kernel take every launch."""
     built = int(production)
     return {
         "jet_layernorm": 2 * layers, "jet_attention": layers, "jet_gemm": 2 * layers,
         "jet_softmax_values": layers, "jet_gemm_tensor_core": 2 * layers,
         "jet_softmax_values_tiled": built * layers, "jet_layernorm_streamed": built * 2 * layers,
+        "jet_layernorm_staged": (1 - built) * 2 * layers,
     }
 
 
@@ -2058,22 +2114,29 @@ def sector_gap_ed(nelec: int, flux: int, m: int) -> float:
     raise AssertionError(f"no L = {m} state in the Lz = {m} block")
 
 
+def profile_parts(argv: list[str], per: dict) -> tuple[dict, list, list]:
+    """``torch_profile_step.py ARGV``: ``(parts by name, its lines, problems)``,
+    a problem unless every part is finite and positive, the local energy
+    launches ``per`` a call and the block 10 times that."""
+    result, lines = quiet(script_module("torch_profile_step").main, ["--device", "cuda", *argv])
+    parts = {row["part"]: row for row in result["parts"]}
+    problems = []
+    bad = [k for k, row in parts.items() if not (math.isfinite(row["ms"]) and row["ms"] > 0)]
+    if bad:
+        problems.append(f"parts {bad} not finite and positive")
+    if parts["local_energy"]["launches"] != per:
+        problems.append(f"the local energy launched {parts['local_energy']['launches']}")
+    if parts["block"]["launches"] != {k: TOOLS_BLOCK * v for k, v in per.items()}:
+        problems.append(f"the block launched {parts['block']['launches']}")
+    return parts, lines, problems
+
+
 def tools_profile(report: dict, failures: list) -> None:
-    """``torch_profile_step.py`` in both modes: every part finite and positive,
-    the local energy one local energy's launches a call, the block 10 times that."""
-    per = launches_per_local_energy()
-    profile = script_module("torch_profile_step")
+    """``torch_profile_step.py`` in both modes under :func:`profile_parts`."""
     for mode, flags in (("l2", []), ("lean", ["--fast"])):
-        result, lines = quiet(profile.main, ["--device", "cuda", *flags])
-        parts = {row["part"]: row for row in result["parts"]}
+        parts, lines, problems = profile_parts(flags, launches_per_local_energy())
         report[f"profile_{mode}"] = dict(lines=lines, parts=parts)
-        bad = [k for k, row in parts.items() if not (math.isfinite(row["ms"]) and row["ms"] > 0)]
-        if bad:
-            failures.append(f"profile {mode}: parts {bad} not finite and positive")
-        if parts["local_energy"]["launches"] != per:
-            failures.append(f"profile {mode}: the local energy launched {parts['local_energy']['launches']}")
-        if parts["block"]["launches"] != {k: TOOLS_BLOCK * v for k, v in per.items()}:
-            failures.append(f"profile {mode}: the block launched {parts['block']['launches']}")
+        failures.extend(f"profile {mode}: {problem}" for problem in problems)
 
 
 def tools_trace(workdir: Path, report: dict, failures: list) -> None:
@@ -2252,7 +2315,7 @@ def phase_large_n(workdir: Path, device, smi: str) -> tuple[dict, dict]:
     rates = peaks(torch.cuda.get_device_name(0))
     start = time.perf_counter()
     failures: list = []
-    report: dict = {"kernels": {}, "runs": {}, "paths": {}}
+    report: dict = {"kernels": {}, "runs": {}, "paths": {}, "split": {}}
     kernels: dict = {}
     counts: dict = {}
 
@@ -2343,17 +2406,34 @@ def phase_large_n(workdir: Path, device, smi: str) -> tuple[dict, dict]:
         if paths["bad"]:
             raise AssertionError(f"n12_block: the kernel path is off in {paths['bad']}")
 
+    def n10_split():
+        """``torch_profile_step.py`` at N = 10, 2Q = 27 in both modes (a fresh
+        production Psiformer) under :func:`profile_parts`, every LayerNorm staged."""
+        for mode, flags in (("l2", []), ("lean", ["--fast"])):
+            parts, lines, problems = profile_parts(["--nelec", "10", "--flux", "27", *flags],
+                                                   launches_per_local_energy(production=False))
+            report["split"][mode] = dict(
+                lines=lines, **{f"{k}_ms": parts[k]["ms"] for k in SPLIT_PARTS},
+                local_energy_launches=parts["local_energy"]["launches"])
+            if problems:
+                raise AssertionError(f"split {mode}: {problems}")
+            torch.cuda.empty_cache()
+
     for n, c, e in LARGE_N_SHAPES:
         guarded(f"kernels N{n}C{c}E{e}", shape_rows, n, c, e)
-    report["kernels"] = {key: {k: {f: row[f] for f in ("ms", "plain_ms", "bound_ms", "max_rel_err")}
+    report["kernels"] = {key: {k: {f: row[f] for f in LARGE_N_FIELDS if f in row}
                                for k, row in rows.items()} for key, rows in kernels.items()}
     guarded("n10_inference", n10_inference)
     guarded("n10_inference_l2", n10_l2)
     guarded("n10_kfac", n10_kfac)
     guarded("n10_paths", n10_paths)
     guarded("n12_block", n12_block)
+    guarded("n10_split", n10_split)
     emit(phase="large_n", nvidia_smi=smi, seconds=time.perf_counter() - start, batch=BATCH,
          launches=counts, failures=failures, **report)
+    for mode, split in report["split"].items():
+        print(f"large_n: N=10 {mode} split, ms: " + ", ".join(
+            f"{k} {split[f'{k}_ms']:.2f}" for k in SPLIT_PARTS) + f" on {smi}", flush=True)
     for name, run in report["runs"].items():
         print(f"large_n: {name} {run['iterations']} iterations, mean energy {run['mean_energy']:.5f} "
               f"+- {run['energy_sem']:.5f}, L^2 {run['mean_l_square']:.4f}, "
@@ -2399,6 +2479,9 @@ def main() -> int:
         for lib, path in libraries.items() if Path(f"{path}.log").exists()
     }
     emit(phase="build", seconds=time.perf_counter() - start, libraries=sorted(libraries), ptxas=ptxas)
+    spilled = spills(ptxas["jet_layernorm"], "jet_layernorm_staged_kernel")
+    if spilled:
+        raise AssertionError(f"build: the staged LayerNorm spills: {spilled}")
 
     kernels = phase_kernels(device, rates)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
@@ -2444,6 +2527,8 @@ def main() -> int:
         row["large_n"] = {shape: table_numbers(rows[kernel]) for shape, rows in large_kernels.items()}
         if kernel == "jet_layernorm":
             row["launches_streamed"] = counts["jet_layernorm_streamed"]
+            row["launches_staged"] = counts["jet_layernorm_staged"]
+            row["launches_staged_large_n"] = large_counts["jet_layernorm_staged"]
         if kernel == "jet_gemm":
             # The q/k/v projection (N = 3D) above; the output projection (N = D) here.
             row["launches_tensor_core"] = counts["jet_gemm_tensor_core"]
@@ -2451,6 +2536,12 @@ def main() -> int:
         if kernel == "jet_softmax_values":
             row["launches_tiled"] = counts["jet_softmax_values_tiled"]
         table.append(row)
+    # The staged LayerNorm, which takes every launch beyond N = 6: its own row,
+    # at N = 10 with L^2 and a residual, with its launches in phase large_n.
+    staged = large_kernels["N10C23E3"]["jet_layernorm"]
+    table.append(dict(name="jet_layernorm_staged", route="cuda", source=sources["jet_layernorm"][0],
+                      replaces=sources["jet_layernorm"][1], shape="N10C23E3",
+                      launches=large_counts["jet_layernorm_staged"], **table_numbers(staged)))
     print(smi, flush=True)
     emit(kernels=table)
     emit(ok=True, device={"platform": "gpu", "kind": name, "count": torch.cuda.device_count()})

@@ -7,7 +7,7 @@
 //
 // What bounds it on the H100: bytes.  Each element is read once (twice with
 // the residual) and written once, against a few dozen flops, far below the
-// card's ratio of flops to bytes.  Both kernels here therefore do what the TPU
+// card's ratio of flops to bytes.  The kernels here therefore do what the TPU
 // kernel does with VMEM, one pass with the row kept on chip, and differ in how
 // they keep the memory system busy.
 //
@@ -25,10 +25,34 @@
 // contiguous piece of several KB.  A row count that is no multiple of the
 // block's rows leaves the last block's spare warps idle.
 //
-// jet_layernorm_kernel, for every other shape: one thread block per row and
-// one thread per feature, run-time C and E within a register capacity (16,
-// 32 or 64 tangents: C <= 64 is N <= 30 with L^2), the row's reductions by
-// warp shuffles plus a shared-memory exchange across the block.
+// jet_layernorm_staged_kernel, for every other jet with D <= 512 whose row
+// fits one stage of shared memory (every D = 256 jet up to C = 64, with or
+// without a residual), at run-time C and E: one persistent block an SM walks over the
+// rows with a ring of S stages in dynamic shared memory, one row a stage (S is
+// one or even: staged::ring says why).
+// Each of the row's planes, and of the residual's, is one contiguous piece of
+// D floats, and arrives by a 1-D bulk asynchronous copy (the Tensor Memory
+// Accelerator) that completes on the stage's "full" mbarrier.  A producer
+// warp issues the copies and refills a stage as soon as its "empty" mbarrier
+// says the row in it is done, so the next rows' bytes are in flight while a
+// row is reduced.  Two groups of 8 warps take alternate rows, so that one
+// group's reductions, shuffle chains and barriers overlap the other's.  In a
+// group the reductions go by plane, not by thread: warp w takes planes w,
+// w + 8, ..., each lane eight features of a plane, and per plane leaves its
+// mean, its centred product with the centred primal and its centred square
+// (which fold the extra variance terms into the same pass) as one float4;
+// every warp centres the primal itself, so the pass needs no barrier inside.
+// Then one thread a feature forms the rsqrt jet from those P float4s and
+// writes every output plane of its feature with coalesced streaming stores;
+// the Laplacian's cross sum over the tangents is the thread's own loop.
+// Registers hold a few scalars a thread and the primal's eight features, not
+// a plane array.
+
+// jet_layernorm_kernel, for what neither takes (D > 512, a row past one stage,
+// or a pointer off the 16-byte grid that a bulk copy needs): one
+// thread block per row and one thread per feature, run-time C and E within a
+// register capacity (16, 32 or 64 tangents), the row's reductions by warp
+// shuffles plus a shared-memory exchange across the block.
 //
 // Algebra (as the TPU kernel, with xc, jc, lc, dc the centred planes and
 // lap = C - E Laplacian tangents; means first, then centred products):
@@ -455,15 +479,398 @@ int run(const Args& a, int feat, int c, int e, int probe, int shape, int blocks,
 
 }  // namespace streamed
 
-// Plain C entry point.  Planes are contiguous [rows, feat] float32 blocks:
+namespace staged {
+
+constexpr int kGroupThreads = 256;               // a group of warps takes one row at a time
+constexpr int kWarps = kGroupThreads / 32;        // warps of a group
+constexpr int kGroups = 2;                        // groups of a block, on alternate rows
+constexpr int kThreads = kGroups * kGroupThreads + 32;  // and one producer warp
+constexpr int kMaxStages = 8;
+constexpr int kMaxFeat = 512;  // D; a lane holds D / 32 floats of the primal
+constexpr int kMaxPieces = 5;  // pieces a producer lane copies per row: 2 (C + E + 2) <= 160
+constexpr int kMaxDevices = 64;
+constexpr unsigned kFull = 0xffffffffu;
+
+// What a probe build leaves out; kWhole is the kernel.
+enum Probe { kWhole = 0, kNoStore = 1, kNoMath = 2 };
+
+struct Args {
+  const float *x, *j, *l, *d, *rx, *rj, *rl, *rd, *scale, *bias;
+  float *ox, *oj, *ol, *od;
+  int64_t rows;
+  int feat, c, e;
+  float eps;
+};
+
+// Floats of one stage: the row's planes, then the residual's.
+__host__ __device__ inline size_t stage_floats(int planes, int feat, bool res) {
+  return static_cast<size_t>(res ? 2 : 1) * planes * feat;
+}
+
+// Dynamic shared memory: the stages; each group's per-plane sums of a row (a
+// float4 a plane), two rows' worth; two mbarriers a stage (full, empty).
+inline size_t smem_bytes(int planes, int feat, bool res, int stages) {
+  return static_cast<size_t>(stages) * (stage_floats(planes, feat, res) * 4 + 16) +
+         static_cast<size_t>(kGroups) * 2 * planes * 16;
+}
+
+// Whether the kernel takes a jet of this shape at all.
+inline bool takes(int feat, int c, int e) {
+  return feat > 0 && feat % 32 == 0 && feat <= kMaxFeat && e >= 1 && c >= e &&
+         2 * (c + e + 2) <= 32 * kMaxPieces;
+}
+
+// The most stages that fit `limit` bytes of dynamic shared memory, at most
+// kMaxStages (0: not one).
+inline int most_stages(int planes, int feat, bool res, int limit) {
+  const int64_t stage = static_cast<int64_t>(stage_floats(planes, feat, res)) * 4 + 16;
+  const int64_t fit = (static_cast<int64_t>(limit) - kGroups * 2 * planes * 16) / stage;
+  return static_cast<int>(fit < 0 ? 0 : fit < kMaxStages ? fit : kMaxStages);
+}
+
+// The ring the kernel runs with at most `stages` stages: an even number past
+// one.  Rows i and i + S share a stage; with S even they also share a group,
+// which has itself waited out the stage's round r before it waits on round
+// r + 1 by its parity.  With S odd past one, row i + S would go to the other
+// group, which could wait while round r is still open, and round r + 1's
+// parity is that of round r - 1, long complete: it would read the stage
+// before its bytes arrive.
+inline int ring(int stages) { return stages > 1 ? stages & ~1 : stages; }
+
+// The device's opt-in limit of dynamic shared memory a block (0 on an error).
+inline int smem_limit(int device) {
+  int limit = 0;
+  if (cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) != cudaSuccess) {
+    return 0;
+  }
+  return limit;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// The one arrival of a phase, with the bytes its copies will bring.
+__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// Waits until the phase of parity `parity` has completed.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra LAB_WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+
+// `bytes` from global `src` to shared `dst`, completing on `bar`; both 16-byte aligned.
+__device__ __forceinline__ void bulk_load(float* dst, const float* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
+}
+
+// Plane p of a jet in the order x, j[0..c), l, d[0..e); `plane` floats apart in j and d.
+template <typename T>
+__device__ __forceinline__ T* plane_of(T* x, T* j, T* l, T* d, int p, int c, int64_t plane) {
+  if (p == 0) return x;
+  if (p <= c) return j + (p - 1) * plane;
+  if (p == c + 1) return l;
+  return d + (p - c - 2) * plane;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// A lane's features of one staged plane, jet plus residual (r null for none):
+// 16-byte pieces at lane * 4 + 128 m, zeros past feat.
+template <int V4>
+__device__ __forceinline__ void load_plane(float (&v)[4 * V4], const float* t, const float* r,
+                                           int feat, int lane) {
+#pragma unroll
+  for (int m = 0; m < V4; ++m) {
+    const int col = lane * 4 + 128 * m;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (col < feat) {
+      a = *reinterpret_cast<const float4*>(t + col);
+      if (r != nullptr) {
+        const float4 b = *reinterpret_cast<const float4*>(r + col);
+        a.x += b.x, a.y += b.y, a.z += b.z, a.w += b.w;
+      }
+    }
+    v[4 * m + 0] = a.x, v[4 * m + 1] = a.y, v[4 * m + 2] = a.z, v[4 * m + 3] = a.w;
+  }
+}
+
+// The named barrier of one group's 256 threads.
+__device__ __forceinline__ void group_sync(int group) {
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + group), "n"(kGroupThreads) : "memory");
+}
+
+// V4: 16-byte pieces a lane holds of a plane (D <= 128 V4).  One block an SM:
+// a producer warp that keeps the ring full, and kGroups groups of warps that
+// take alternate rows, so that one group's reductions and barriers overlap
+// the other's.
+template <int V4, int PROBE>
+__global__ void __launch_bounds__(kThreads, 1) jet_layernorm_staged_kernel(const Args a, int stages) {
+  extern __shared__ __align__(16) float smem[];
+  const int c = a.c, e = a.e, feat = a.feat;
+  const int planes = c + e + 2;
+  const int lap = c - e;
+  const bool res = a.rx != nullptr;
+  const int64_t plane = a.rows * feat;
+  const size_t sfloats = stage_floats(planes, feat, res);
+  float4* stats = reinterpret_cast<float4*>(smem + stages * sfloats);
+  uint64_t* full = reinterpret_cast<uint64_t*>(stats + kGroups * 2 * planes);
+  uint64_t* empty = full + stages;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const float inv = 1.f / static_cast<float>(feat);
+  const float eps = a.eps;
+  // This block's rows: first, first + step, ...
+  const int64_t first = blockIdx.x, step = gridDim.x;
+  const int64_t count = (a.rows - first + step - 1) / step;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      bar_init(full + s, 1);
+      bar_init(empty + s, kWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kGroups * kWarps) {
+    // The producer: row i's pieces go to stage i % stages once the group that
+    // had the stage before has left it.  Each lane copies up to kMaxPieces.
+    const uint32_t piece = static_cast<uint32_t>(feat) * 4;
+    const int pieces = (res ? 2 : 1) * planes;
+    const float* src[kMaxPieces];
+#pragma unroll
+    for (int m = 0; m < kMaxPieces; ++m) {
+      const int k = lane + 32 * m;
+      src[m] = k >= pieces  ? nullptr
+               : k < planes ? plane_of(a.x, a.j, a.l, a.d, k, c, plane)
+                            : plane_of(a.rx, a.rj, a.rl, a.rd, k - planes, c, plane);
+    }
+    for (int64_t i = 0; i < count; ++i) {
+      const int s = static_cast<int>(i % stages);
+      if (i >= stages) {
+        bar_wait(empty + s, static_cast<uint32_t>((i / stages - 1) & 1));
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      }
+      if (lane == 0) bar_expect(full + s, pieces * piece);
+      __syncwarp();
+      const int64_t off = (first + i * step) * feat;
+      float* dst = smem + s * sfloats;
+#pragma unroll
+      for (int m = 0; m < kMaxPieces; ++m) {
+        if (src[m] != nullptr) bulk_load(dst + (lane + 32 * m) * feat, src[m] + off, piece, full + s);
+      }
+    }
+    return;
+  }
+
+  // A group waits on a stage's full barrier by the parity of the row's round
+  // in the ring, which is right only if the row a round before in that stage
+  // has arrived: the group that waits took that row itself, since the ring
+  // has one stage and one group takes every row, or an even number of stages
+  // (ring) and rows i and i + stages go to the same group.
+  const int groups = stages < kGroups ? stages : kGroups;
+  const int group = warp / kWarps;
+  const int gw = warp % kWarps;                     // warp within the group
+  const int gt = threadIdx.x % kGroupThreads;       // thread within the group
+  for (int64_t i = group, turn = 0; i < count && group < groups; i += groups, ++turn) {
+    const int s = static_cast<int>(i % stages);
+    const int64_t row = first + i * step;
+    const float* tin = smem + s * sfloats;
+    const float* rin = res ? tin + planes * feat : nullptr;
+    // The group's sums of this row; the other half holds its previous row's.
+    float4* stat = stats + (2 * group + (turn & 1)) * planes;
+    bar_wait(full + s, static_cast<uint32_t>((i / stages) & 1));
+
+    if constexpr (PROBE != kNoMath) {
+      // By plane: each warp centres the primal, then per plane of its own
+      // leaves (mean, sum xc * pc, sum pc^2) of the centred plane pc.
+      float xc[4 * V4];
+      load_plane<V4>(xc, tin, rin, feat, lane);
+      float sx = 0.f;
+#pragma unroll
+      for (int n = 0; n < 4 * V4; ++n) sx += xc[n];
+      const float mx = warp_sum(sx) * inv;
+#pragma unroll
+      for (int n = 0; n < 4 * V4; ++n) xc[n] = lane * 4 + 128 * (n / 4) < feat ? xc[n] - mx : 0.f;
+#pragma unroll 2
+      for (int p = gw; p < planes; p += kWarps) {
+        float v[4 * V4];
+        load_plane<V4>(v, tin + p * feat, rin ? rin + p * feat : nullptr, feat, lane);
+        float sv = 0.f;
+#pragma unroll
+        for (int n = 0; n < 4 * V4; ++n) sv += v[n];
+        const float mean = warp_sum(sv) * inv;
+        float sa = 0.f, sb = 0.f;
+#pragma unroll
+        for (int n = 0; n < 4 * V4; ++n) {
+          const float pc = lane * 4 + 128 * (n / 4) < feat ? v[n] - mean : 0.f;
+          sa += xc[n] * pc;
+          sb += pc * pc;
+        }
+        sa = warp_sum(sa);
+        sb = warp_sum(sb);
+        if (lane == 0) stat[p] = make_float4(mean, sa, sb, 0.f);
+      }
+    }
+    group_sync(group);
+
+    // By feature: the rsqrt jet from the P sums, then every output plane.
+    const auto in = [&](int p, int f) {
+      float v = tin[p * feat + f];
+      if (res) v += rin[p * feat + f];
+      return v;
+    };
+    // A probe without stores still computes: eps is never negative.
+    const auto put = [&](float* out, int64_t o, float v) {
+      if (PROBE != kNoStore || eps < 0.f) __stcs(out + o, v);
+    };
+    if constexpr (PROBE == kNoMath) {
+      for (int f = gt; f < feat; f += kGroupThreads) {
+        const int64_t o = row * feat + f;
+        for (int p = 0; p < planes; ++p) put(plane_of(a.ox, a.oj, a.ol, a.od, p, c, plane), o, in(p, f));
+      }
+    } else {
+      const float4 st0 = stat[0];
+      const float rs = rsqrtf(st0.y * inv + eps);
+      const float f1 = -0.5f * rs * rs * rs;
+      const float f2 = 0.75f * rs * rs * rs * rs * rs;
+      for (int f = gt; f < feat; f += kGroupThreads) {
+        const int64_t o = row * feat + f;
+        const float sc = __ldg(a.scale + f);
+        const float xc = in(0, f) - st0.x;
+        put(a.ox, o, xc * rs * sc + __ldg(a.bias + f));
+        // The Laplacian's tangents: their cross sum and the variance terms they add.
+        float cross = 0.f, jsq = 0.f, varj_sq = 0.f;
+#pragma unroll 4
+        for (int k = 0; k < lap; ++k) {
+          const float4 sj = stat[1 + k];
+          const float jc = in(1 + k, f) - sj.x;
+          const float varj = 2.f * sj.y * inv;
+          const float rsj = f1 * varj;
+          put(a.oj + k * plane, o, (jc * rs + xc * rsj) * sc);
+          cross += jc * rsj;
+          jsq += sj.z;
+          varj_sq += varj * varj;
+        }
+        // The extra tangents j[lap + q] and their second derivatives d[q].
+        for (int q = 0; q < e; ++q) {
+          const float4 sj = stat[1 + lap + q];
+          const float4 sd = stat[c + 2 + q];
+          const float jc = in(1 + lap + q, f) - sj.x;
+          const float dc = in(c + 2 + q, f) - sd.x;
+          const float varj = 2.f * sj.y * inv;
+          const float rsj = f1 * varj;
+          const float rsd = f1 * 2.f * (sd.y + sj.z) * inv + f2 * varj * varj;
+          put(a.oj + (lap + q) * plane, o, (jc * rs + xc * rsj) * sc);
+          put(a.od + q * plane, o, (dc * rs + xc * rsd + 2.f * jc * rsj) * sc);
+        }
+        const float4 sl = stat[c + 1];
+        const float lc = in(c + 1, f) - sl.x;
+        const float rsl = f1 * 2.f * (sl.y + jsq) * inv + f2 * varj_sq;
+        put(a.ol, o, (lc * rs + xc * rsl + 2.f * cross) * sc);
+      }
+    }
+    // This warp is done with the stage: once the group's 8 warps are, the
+    // producer refills it.
+    __syncwarp();
+    if (lane == 0) bar_arrive(empty + s);
+  }
+}
+
+// Each instantiation may use all of `limit` bytes of dynamic shared memory on
+// a device once the attribute is set there, which happens once.
+template <int V4, int PROBE>
+int launch(const Args& a, int stages, int device, int limit, cudaStream_t stream) {
+  static int allowed[kMaxDevices] = {};
+  const auto kernel = jet_layernorm_staged_kernel<V4, PROBE>;
+  if (allowed[device] != limit) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    allowed[device] = limit;
+  }
+  const size_t smem = smem_bytes(a.c + a.e + 2, a.feat, a.rx != nullptr, stages);
+  int sms = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const int64_t grid = sms < a.rows ? sms : a.rows;
+  kernel<<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(a, stages);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int V4>
+int launch_probe(const Args& a, int probe, int stages, int device, int limit,
+                 cudaStream_t stream) {
+  if (probe == kWhole) return launch<V4, kWhole>(a, stages, device, limit, stream);
+  if (probe == kNoStore) return launch<V4, kNoStore>(a, stages, device, limit, stream);
+  if (probe == kNoMath) return launch<V4, kNoMath>(a, stages, device, limit, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// stages: the most the ring may hold, or 0 for as many as fit (at most
+// kMaxStages); it runs with ring(stages).
+int run(const Args& a, int probe, int stages, void* stream) {
+  const void* ptrs[] = {a.x, a.j, a.l, a.d, a.scale, a.bias, a.ox, a.oj, a.ol, a.od};
+  for (const void* p : ptrs) {
+    if (p == nullptr || !aligned16(p)) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const void* residual[] = {a.rx, a.rj, a.rl, a.rd};
+  const bool res = a.rx != nullptr;
+  for (const void* p : residual) {
+    if ((p != nullptr) != res || !aligned16(p)) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (!takes(a.feat, a.c, a.e) || a.rows <= 0 || a.rows > 0x7fffffff || stages < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int device = 0;
+  cudaGetDevice(&device);
+  if (device < 0 || device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  const int limit = smem_limit(device);
+  const int most = most_stages(a.c + a.e + 2, a.feat, res, limit);
+  if (most < 1 || stages > most) return static_cast<int>(cudaErrorInvalidValue);
+  stages = ring(stages == 0 ? most : stages);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a.feat <= 256) return launch_probe<2>(a, probe, stages, device, limit, s);
+  return launch_probe<4>(a, probe, stages, device, limit, s);
+}
+
+}  // namespace staged
+
+
+// The generic kernel.  Planes are contiguous [rows, feat] float32 blocks:
 // j and d (and rj, rd) hold c and e planes back to back.  rx..rd are null for
 // no residual.  Returns the CUDA error of the launch (0 on success).
-extern "C" int jet_layernorm_f32(const float* x, const float* j, const float* l,
-                                 const float* d, const float* rx, const float* rj,
-                                 const float* rl, const float* rd, const float* scale,
-                                 const float* bias, float* ox, float* oj, float* ol,
-                                 float* od, int64_t rows, int feat, int c, int e,
-                                 float eps, void* stream) {
+extern "C" int jet_layernorm_generic_f32(const float* x, const float* j, const float* l,
+                                         const float* d, const float* rx, const float* rj,
+                                         const float* rl, const float* rd, const float* scale,
+                                         const float* bias, float* ox, float* oj, float* ol,
+                                         float* od, int64_t rows, int feat, int c, int e,
+                                         float eps, void* stream) {
   if (feat <= 0 || feat % 32 != 0 || feat > 1024 || e < 1 || e > 4 || c < e ||
       c > 64 || rows <= 0 || rows > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -516,4 +923,43 @@ extern "C" int jet_layernorm_streamed_probe_f32(const float* x, const float* j, 
                                                 int shape, int blocks, void* stream) {
   const streamed::Args a{x, j, l, d, rx, rj, rl, rd, scale, bias, ox, oj, ol, od, rows, eps};
   return streamed::run(a, feat, c, e, probe, shape, blocks, stream);
+}
+
+// The staged kernel: any jet with feat <= 512 whose row fits one stage
+// (ops/jet_layernorm.py:takes_staged), with or without a residual, every
+// pointer a multiple of 16 bytes; any row count.  Same arguments and return value as above;
+// cudaErrorInvalidValue for what it does not take.
+extern "C" int jet_layernorm_staged_f32(const float* x, const float* j, const float* l,
+                                        const float* d, const float* rx, const float* rj,
+                                        const float* rl, const float* rd, const float* scale,
+                                        const float* bias, float* ox, float* oj, float* ol,
+                                        float* od, int64_t rows, int feat, int c, int e,
+                                        float eps, void* stream) {
+  const staged::Args a{x, j, l, d, rx, rj, rl, rd, scale, bias, ox, oj, ol, od, rows, feat, c, e, eps};
+  return staged::run(a, staged::kWhole, 0, stream);
+}
+
+// The stages of the staged kernel's ring for a jet of this shape on `device`,
+// 0 where the kernel does not take it: the routing rule
+// (ops/jet_layernorm.py:takes_staged) asks here, so that it and the launch
+// agree on the budget.
+extern "C" int jet_layernorm_staged_stages(int device, int feat, int c, int e, int residual) {
+  if (!staged::takes(feat, c, e) || device < 0 || device >= staged::kMaxDevices) return 0;
+  const int limit = staged::smem_limit(device);
+  return staged::ring(staged::most_stages(c + e + 2, feat, residual != 0, limit));
+}
+
+// The staged kernel cut down or with a shorter ring, for timing only
+// (scripts/torch_layernorm_diagnostics.py).  probe: 0 the kernel, 1 without its
+// stores, 2 without its arithmetic (load, add, store).  stages: at most this
+// many in the ring (an odd number past one runs one fewer), 0 for as many as fit.
+extern "C" int jet_layernorm_staged_probe_f32(const float* x, const float* j, const float* l,
+                                              const float* d, const float* rx, const float* rj,
+                                              const float* rl, const float* rd,
+                                              const float* scale, const float* bias, float* ox,
+                                              float* oj, float* ol, float* od, int64_t rows,
+                                              int feat, int c, int e, float eps, int probe,
+                                              int stages, void* stream) {
+  const staged::Args a{x, j, l, d, rx, rj, rl, rd, scale, bias, ox, oj, ol, od, rows, feat, c, e, eps};
+  return staged::run(a, probe, stages, stream);
 }

@@ -16,6 +16,7 @@ def launch_counts() -> dict:
         "jet_gemm_tensor_core": ja.jet_gemm.launches_tensor_core,
         "jet_softmax_values_tiled": ja.softmax_values.launches_tiled,
         "jet_layernorm_streamed": jl.layernorm_jet.launches_streamed,
+        "jet_layernorm_staged": jl.layernorm_jet.launches_staged,
     }
 
 
@@ -29,3 +30,4 @@ def reset_launch_counts() -> None:
     ja.jet_gemm.launches_tensor_core = 0
     ja.softmax_values.launches_tiled = 0
     jl.layernorm_jet.launches_streamed = 0
+    jl.layernorm_jet.launches_staged = 0

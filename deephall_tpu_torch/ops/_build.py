@@ -83,7 +83,8 @@ def library(name: str) -> ctypes.CDLL:
 
 @functools.cache
 def function(name: str, symbol: str, argtypes: tuple):
-    """The C entry point ``symbol`` of library ``name``, returning an ``int`` status.
+    """The C entry point ``symbol`` of library ``name``, returning an ``int`` (a
+    CUDA status unless the entry point says otherwise).
 
     Pointers and the stream are ``ctypes.c_void_p``: an untyped argument would
     be passed as a 32-bit int and cut the pointer.

@@ -5,7 +5,10 @@ lines: the bf16 forward of the sweep, ``signed_logsumdet`` on ``[B, ndet, N,
 N]``, the 10-move sweep, the local energy (the jet, with ``(C, E) = (15, 3)``
 with L^2 and ``(13, 1)`` with ``--fast``), ``logsumdet_jet`` with ``--fast``,
 the loss with its energy gradient, one KFAC training step and the iteration
-inside a block of 10 (``scripts/torch_production_block.py``).  Each part is
+inside a block of 10 (``scripts/torch_production_block.py``).  Beside them
+the two parts of the training step that its split in ``chip_smoke.py``
+names: the float32 forward in the KFAC capture with its two backward passes
+(``loss.gradient_and_capture``) and the KFAC update (``kfac.kfac_update``).  Each part is
 timed with CUDA events over calls in a row after a warm-up, and each line
 also gives the launches of every hand-written kernel per call (the wrappers'
 counters, ``deephall_tpu_torch.ops.launch_counts``).
@@ -65,6 +68,7 @@ def profile(args, device: torch.device) -> list[dict]:
     from deephall_tpu_torch import loss, train
     from deephall_tpu_torch.loss import LossMode
     from deephall_tpu_torch.ops import fwdlap
+    from deephall_tpu_torch.optimizers import kfac
     from deephall_tpu_torch.ops.slogdet import signed_logsumdet
     from deephall_tpu_torch.types import CheckpointState
     from torch_production_block import build_parts, initial_state
@@ -101,6 +105,20 @@ def profile(args, device: torch.device) -> list[dict]:
             add("logsumdet_jet", "logsumdet_jet (det share)", lambda: fwdlap.logsumdet_jet(jet))
     grad_loss = loss.make_loss_fn(model, cfg.system, LossMode.ENERGY_GRAD)
     add("loss_gradient", "loss + energy gradient", lambda: grad_loss(data))
+
+    # The training step's own parts, on this batch's local energy.
+    with torch.no_grad():
+        el, obs = local_energy(data)
+    add("gradient_capture", "forward + two backward (KFAC capture)",
+        lambda: loss.gradient_and_capture(model, cfg.system, data, el, obs))
+    _, grads, inputs, dy = loss.gradient_and_capture(model, cfg.system, data, el, obs)
+    specs = kfac.discover(model, args.nelec)
+    # The update steps its parameters in place: it steps copies, so that the
+    # parts timed after it start from the same model as before.
+    params = {name: p.detach().clone() for name, p in model.named_parameters()}
+    add("kfac_update", "KFAC update",
+        lambda: kfac.kfac_update(cfg.optim.kfac, specs, params, parts.opt_state, grads, inputs, dy))
+    del el, obs, grads, inputs, dy
 
     state = CheckpointState(model, data, parts.opt_state, width)
 

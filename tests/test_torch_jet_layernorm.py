@@ -1,10 +1,12 @@
-"""The jet LayerNorm of the port at the width its streamed kernel is compiled for.
+"""The jet LayerNorm of the port at the width its streamed and staged kernels take.
 
 The plain version is what the CUDA kernels are held against on the card, so
 these tests hold the plain version itself: against the JAX chain and the
-Pallas kernel (interpret mode) at D = 256 in both production jet modes, and
-against a float64 evaluation for rows with a large mean.  They also cover the
-choice between the two CUDA kernels, which is a pure function of the shapes.
+Pallas kernel (interpret mode) at D = 256 in both production jet modes and at
+the shapes beyond N = 6 that the staged kernel takes, and against a float64
+evaluation for rows with a large mean.  They also cover the choice between
+the three CUDA kernels, a pure function of the shapes and of the stages the
+staged kernel's library finds room for, and the bytes of a stage.
 """
 
 from __future__ import annotations
@@ -53,7 +55,9 @@ def field_errors(got, want):
     }
 
 
-@pytest.mark.parametrize("c,e", MODES)
+# The production modes, then N = 10 lean and with L^2, N = 16 with L^2 and the
+# largest jet the kernels take (C = 64, E = 4).
+@pytest.mark.parametrize("c,e", MODES + [(21, 1), (23, 3), (35, 3), (64, 4)])
 def test_plain_matches_jax_at_kernel_width(c, e):
     rng = np.random.default_rng(100 * c + e)
     x, r = random_jet(rng, c, e), random_jet(rng, c, e)
@@ -118,13 +122,71 @@ def test_takes_streamed(feat, c, e, residual, rows, aligned, taken):
     assert jet_layernorm.takes_streamed(feat, c, e, residual, rows, aligned) is taken
 
 
+# Stage bytes with a residual (two jets of P = C + E + 2 planes of D floats):
+# N = 10, 12 and 16 with L^2 and C = 64, E = 4 at D = 256; without a residual;
+# D = 512 and 1024.  The stages that fit on the card are the library's answer
+# (test_torch_kernels_cuda.py::test_staged_stages_on_the_card).
+@pytest.mark.parametrize("feat,c,e,residual,nbytes", [
+    (256, 23, 3, True, 57_344),
+    (256, 27, 3, True, 65_536),
+    (256, 35, 3, True, 81_920),
+    (256, 64, 4, True, 143_360),
+    (256, 21, 1, True, 49_152),
+    (256, 19, 3, True, 49_152),
+    (256, 15, 3, True, 40_960),
+    (256, 23, 3, False, 28_672),
+    (256, 64, 4, False, 71_680),
+    (512, 35, 3, True, 163_840),
+    (1024, 64, 4, True, 573_440),
+    (1024, 64, 4, False, 286_720),
+])
+def test_stage_bytes(feat, c, e, residual, nbytes):
+    assert jet_layernorm.stage_bytes(feat, c, e, residual) == nbytes
+
+
+@pytest.mark.parametrize("rows,aligned,stages,taken", [
+    (33600, True, 4, True),  # N = 10 with L^2
+    (33600, True, 2, True),  # N = 12 with L^2
+    (222, True, 2, True),  # N = 16, no multiple of the grid
+    (1, True, 1, True),  # C = 64, E = 4: one stage
+    (20160, True, 8, True),
+    (37, True, 6, True),
+    (0x7FFFFFFF, True, 2, True),  # the most rows a launch takes
+    (222, True, 0, False),
+    (1, False, 1, False),
+    (222, False, 0, False),
+    (0, False, 8, False),
+    (18, True, 0, False),  # D past the kernel's 512, or a row past one stage
+    (33600, False, 4, False),  # a field off the 16-byte grid
+    (0, True, 4, False),
+])
+def test_takes_staged(rows, aligned, stages, taken):
+    assert jet_layernorm.takes_staged(rows, aligned, stages) is taken
+
+
+@pytest.mark.parametrize("feat,c,e,residual,aligned,stages,kernel", [
+    (256, 15, 3, True, True, 4, "streamed"),
+    (256, 13, 1, True, True, 4, "streamed"),
+    (256, 15, 3, False, True, 8, "staged"),
+    (256, 23, 3, True, True, 4, "staged"),
+    (256, 64, 4, True, True, 1, "staged"),
+    (256, 15, 3, True, False, 4, "generic"),
+    (256, 23, 3, False, False, 8, "generic"),
+    (1024, 64, 4, True, True, 0, "generic"),
+])
+def test_route(feat, c, e, residual, aligned, stages, kernel):
+    assert jet_layernorm.route(feat, c, e, residual, 222, aligned, stages) == kernel
+
+
 def test_cpu_jet_counts_no_launch():
     rng = np.random.default_rng(3)
     c, e = MODES[0]
     p = {k: torch.from_numpy(v) for k, v in random_params(rng).items()}
     x, r = to_torch(random_jet(rng, c, e)), to_torch(random_jet(rng, c, e))
     fn = jet_layernorm.layernorm_jet
-    before = fn.launches, fn.launches_streamed
+    before = fn.launches, fn.launches_streamed, fn.launches_staged
     out = fn(p, x, residual=r)
-    assert (fn.launches, fn.launches_streamed) == before
+    generic = jet_layernorm.layernorm_jet_generic(p, x, residual=r)
+    assert (fn.launches, fn.launches_streamed, fn.launches_staged) == before
     assert out.j.shape == x.j.shape and torch.isfinite(out.l).all()
+    assert all(torch.equal(a, b) for a, b in zip(out, generic))

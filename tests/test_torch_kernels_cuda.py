@@ -11,13 +11,14 @@ kernel tests hold the Pallas kernels against their chains.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 
 import pytest
 import torch
 
-from deephall_tpu_torch.ops import jet_attention, jet_layernorm
+from deephall_tpu_torch.ops import _build, jet_attention, jet_layernorm
 from deephall_tpu_torch.ops.fwdlap import Jet
 
 pytestmark = pytest.mark.cuda
@@ -52,33 +53,41 @@ def layernorm_params(gen, device, feat):
             "bias": torch.randn(feat, generator=gen, device=device) * 0.1}
 
 
-def run_layernorm(p, x, r, streamed):
-    """The wrapper's result, after checking which of the two kernels it launched."""
-    fn = jet_layernorm.layernorm_jet
-    before = fn.launches, fn.launches_streamed
+def kernel_for(feat, c, e, residual):
+    """The kernel the routing rule names for a jet whose fields are aligned."""
+    stages = jet_layernorm.staged_stages(torch.cuda.current_device(), feat, c, e, residual)
+    return jet_layernorm.route(feat, c, e, residual, 1, True, stages)
+
+
+def run_layernorm(p, x, r, kernel, fn=jet_layernorm.layernorm_jet):
+    """``fn``'s result, after checking which of the three kernels it launched."""
+    counts = jet_layernorm.layernorm_jet
+    before = counts.launches, counts.launches_streamed, counts.launches_staged
     got = fn(p, x, residual=r)
     torch.cuda.synchronize()
-    assert (fn.launches, fn.launches_streamed) == (before[0] + 1, before[1] + streamed)
+    after = counts.launches, counts.launches_streamed, counts.launches_staged
+    assert after == (before[0] + 1, before[1] + (kernel == "streamed"),
+                     before[2] + (kernel == "staged")), kernel
     return got
 
 
 # 37 walkers of 6 tokens are 222 rows: no multiple of the streamed kernel's
-# rows per block.  It takes the production shapes with a residual, the generic
-# kernel everything else: N = 8, 10, 12 and 16 (C = 2N + E) in its 32- and
-# 64-tangent builds, and C = 35 at D = 512 in the 1,024-thread one.
+# rows per block, and no multiple of the staged kernel's grid.  The streamed
+# kernel takes the production shapes with a residual, the staged kernel every
+# other jet whose row fits one stage (N = 8, 10, 12, 16 and C = 64 at D = 256,
+# D = 64 and 512), the generic kernel the rest (C = 64 at D = 1024).
 @pytest.mark.parametrize("residual", [False, True])
 @pytest.mark.parametrize("c,e,t,feat", [
     (13, 1, 6, 256), (15, 3, 6, 256), (17, 1, 8, 64), (5, 2, 3, 512),
     (19, 3, 8, 256), (21, 1, 10, 256), (23, 3, 10, 256), (25, 1, 12, 256), (27, 3, 12, 256),
-    (35, 3, 16, 256), (35, 3, 4, 512),
+    (35, 3, 16, 256), (35, 3, 4, 512), (17, 1, 8, 256), (64, 4, 4, 256), (64, 4, 2, 1024),
 ])
 def test_layernorm_kernel(device, c, e, t, feat, residual):
     gen = torch.Generator(device=device).manual_seed(c + feat)
     x = random_jet(gen, device, 37, t, feat, c, e)
     r = random_jet(gen, device, 37, t, feat, c, e) if residual else None
     p = layernorm_params(gen, device, feat)
-    streamed = residual and (feat, c, e) in ((256, 13, 1), (256, 15, 3))
-    got = run_layernorm(p, x, r, streamed)
+    got = run_layernorm(p, x, r, kernel_for(feat, c, e, residual))
     assert_close(got, jet_layernorm.layernorm_jet_plain(p, x, residual=r))
 
 
@@ -87,28 +96,139 @@ def test_layernorm_kernel_production_rows(device, c, e):
     gen = torch.Generator(device=device).manual_seed(c)
     x, r = (random_jet(gen, device, 3360, 6, 256, c, e) for _ in range(2))
     p = layernorm_params(gen, device, 256)
-    got = run_layernorm(p, x, r, streamed=True)
+    got = run_layernorm(p, x, r, "streamed")
     assert_close(got, jet_layernorm.layernorm_jet_plain(p, x, residual=r))
 
 
-@pytest.mark.parametrize("residual", [False, True])  # the generic kernel, the streamed kernel
+# The staged kernel at the row count of a batch of 3360 walkers of 10 tokens,
+# every shape beyond N = 6 that it takes (N = 8, 10, 12, 16, and C = 64).
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("c,e", [(17, 1), (19, 3), (21, 1), (23, 3), (27, 3), (35, 3), (64, 4)])
+def test_staged_kernel_production_rows(device, c, e, residual):
+    gen = torch.Generator(device=device).manual_seed(100 + c)
+    x = random_jet(gen, device, 3360, 10, 256, c, e)
+    r = random_jet(gen, device, 3360, 10, 256, c, e) if residual else None
+    p = layernorm_params(gen, device, 256)
+    got = run_layernorm(p, x, r, "staged")
+    assert_close(got, jet_layernorm.layernorm_jet_plain(p, x, residual=r))
+
+
+# The stages of the staged kernel's ring on an H100 (232,448 bytes of shared
+# memory a block): as many as fit, at most 8, one or an even number.  N = 10,
+# 12 and 16 with L^2 and C = 64, E = 4 at D = 256 with a residual; without
+# one; D = 512 and 1024.
+@pytest.mark.parametrize("feat,c,e,residual,stages", [
+    (256, 23, 3, True, 4),
+    (256, 27, 3, True, 2),  # 3 fit
+    (256, 35, 3, True, 2),
+    (256, 64, 4, True, 1),
+    (256, 21, 1, True, 4),
+    (256, 19, 3, True, 4),
+    (256, 15, 3, True, 4),  # 5 fit
+    (256, 23, 3, False, 8),  # the kernel's most
+    (256, 64, 4, False, 2),  # 3 fit
+    (512, 35, 3, True, 1),
+    (512, 64, 4, True, 0),  # a row past one stage
+    (1024, 64, 4, False, 0),  # D past the kernel's 512
+])
+def test_staged_stages_on_the_card(device, feat, c, e, residual, stages):
+    assert jet_layernorm.staged_stages(torch.cuda.current_device(), feat, c, e, residual) == stages
+
+
+@pytest.mark.parametrize("compute_l2", [True, False])
+def test_staged_takes_every_system_up_to_16_on_the_card(device, compute_l2):
+    """At D = 256 every jet LayerNorm of N <= 16, and of N = 30 with L^2, goes
+    to the staged kernel on the card; only N = 6 with a residual stays on the
+    streamed kernel."""
+    for nelec in [*range(1, 17), *([30] if compute_l2 else [])]:
+        c, e = (2 * nelec + 3, 3) if compute_l2 else (2 * nelec + 1, 1)
+        for residual in (True, False):
+            want = "streamed" if nelec == 6 and residual else "staged"
+            assert kernel_for(256, c, e, residual) == want, (nelec, residual)
+
+
+_STAGED_PROBE_ARGTYPES = jet_layernorm._ARGTYPES[:-1] + (ctypes.c_int,) * 2 + (ctypes.c_void_p,)
+
+
+def staged_ring(p, x, r, stages):
+    """The staged kernel with at most ``stages`` stages in its ring, through
+    its timing entry point (an odd number past one runs one fewer)."""
+    c, e, feat = x.j.shape[0], x.d.shape[0], x.x.shape[-1]
+    out = torch.empty((c + e + 2, *x.x.shape), device=x.x.device)
+    fields = Jet(out[0], out[1 : 1 + c], out[1 + c], out[2 + c :])
+    res = r if r is not None else (None,) * 4
+    ptrs = [v.data_ptr() if v is not None else None for v in (*x, *res)]
+    ptrs += [v.data_ptr() for v in (p["scale"], p["bias"], *fields)]
+    fn = _build.function("jet_layernorm", "jet_layernorm_staged_probe_f32", _STAGED_PROBE_ARGTYPES)
+    status = fn(*ptrs, x.x.numel() // feat, feat, c, e, 1e-5, 0, stages, _build.stream(x.x.device))
+    assert status == 0, f"CUDA error {status}"
+    torch.cuda.synchronize()
+    return fields
+
+
+# Every ring the kernel may be asked for, on 33,600 rows: rows i and i + S of
+# a block share a stage, and an odd ring past one would hand them to different
+# groups of warps.  Without a residual 8 stages of N = 10 fit, with one 3 of
+# N = 12.
+@pytest.mark.parametrize("c,e,residual,most", [(23, 3, False, 8), (27, 3, True, 3)])
+def test_staged_kernel_every_ring(device, c, e, residual, most):
+    gen = torch.Generator(device=device).manual_seed(7 + c)
+    x = random_jet(gen, device, 3360, 10, 256, c, e)
+    r = random_jet(gen, device, 3360, 10, 256, c, e) if residual else None
+    p = layernorm_params(gen, device, 256)
+    want = jet_layernorm.layernorm_jet_plain(p, x, residual=r)
+    for stages in range(1, most + 1):
+        for _ in range(3):
+            assert_close(staged_ring(p, x, r, stages), want)
+
+
+def centred_moment_inputs(device, c, e, residual):
+    gen = torch.Generator(device=device).manual_seed(11)
+    x = Jet(*(v + 100 for v in random_jet(gen, device, 37, 6, 256, c, e)))
+    r = random_jet(gen, device, 37, 6, 256, c, e) if residual else None
+    p = layernorm_params(gen, device, 256)
+    want = jet_layernorm.layernorm_jet_plain(
+        {k: v.double() for k, v in p.items()}, Jet(*(v.double() for v in x)),
+        residual=Jet(*(v.double() for v in r)) if residual else None,
+    )
+    return p, x, r, want
+
+
+@pytest.mark.parametrize("residual", [False, True])  # the staged kernel, the streamed kernel
 def test_layernorm_kernels_keep_centred_moments(device, residual):
     """Rows with a mean of 100 and a spread of 1, against float64 on the same inputs.
 
     The float32 plain version stays under 5e-6 of each field's largest value
     there; a one-pass variance would be off by about 1e-3.
     """
-    c, e = 15, 3
-    gen = torch.Generator(device=device).manual_seed(11)
-    x = Jet(*(v + 100 for v in random_jet(gen, device, 37, 6, 256, c, e)))
-    r = random_jet(gen, device, 37, 6, 256, c, e) if residual else None
-    p = layernorm_params(gen, device, 256)
-    got = run_layernorm(p, x, r, streamed=residual)
-    want = jet_layernorm.layernorm_jet_plain(
-        {k: v.double() for k, v in p.items()}, Jet(*(v.double() for v in x)),
-        residual=Jet(*(v.double() for v in r)) if residual else None,
-    )
+    p, x, r, want = centred_moment_inputs(device, 15, 3, residual)
+    got = run_layernorm(p, x, r, "streamed" if residual else "staged")
     assert_close(got, want)
+
+
+@pytest.mark.parametrize("kernel", ["staged", "generic"])
+def test_kernels_keep_centred_moments_beyond_n6(device, kernel):
+    """The same rows at N = 10 with L^2 and a residual, through the staged
+    kernel and through the generic kernel's own entry point."""
+    p, x, r, want = centred_moment_inputs(device, 23, 3, True)
+    fn = jet_layernorm.layernorm_jet if kernel == "staged" else jet_layernorm.layernorm_jet_generic
+    assert_close(run_layernorm(p, x, r, kernel, fn), want)
+
+
+def test_unaligned_jet_takes_the_generic_kernel(device):
+    """A field 4 bytes off the 16-byte grid: no bulk copy can read it, so the
+    staged kernel is not taken and the generic one is."""
+    c, e, t, feat = 23, 3, 10, 256
+    gen = torch.Generator(device=device).manual_seed(3)
+    x, r = (random_jet(gen, device, 37, t, feat, c, e) for _ in range(2))
+    flat = torch.empty(x.x.numel() + 1, device=device)
+    shifted = flat[1:].view(x.x.shape)
+    shifted.copy_(x.x)
+    assert shifted.data_ptr() % 16 == 4
+    x = Jet(shifted, x.j, x.l, x.d)
+    p = layernorm_params(gen, device, feat)
+    got = run_layernorm(p, x, r, "generic")
+    assert_close(got, jet_layernorm.layernorm_jet_plain(p, x, residual=r))
 
 
 @pytest.mark.parametrize("c,e,t,feat,heads", [

@@ -127,6 +127,25 @@ def test_kernel_limits_take_every_system_up_to_16(compute_l2):
     assert jet_attention.softmax_values_smem(40, 16, 64, 3) == 91_904
 
 
+@pytest.mark.parametrize("compute_l2", [True, False])
+def test_staged_layernorm_takes_every_system_up_to_16(compute_l2):
+    """At D = 256 every jet LayerNorm of N <= 16, and of N = 30 with L^2, goes
+    to the staged kernel, with a residual or without; only N = 6 with a
+    residual stays on the streamed kernel.  Its row is no larger than that of
+    C = 64, E = 4 with a residual, which gets one stage on the card
+    (test_torch_kernels_cuda.py::test_staged_stages_on_the_card)."""
+    feat, rows = 256, 3360 * 16
+    largest = jet_layernorm.stage_bytes(feat, jet_layernorm.MAX_TANGENTS,
+                                        jet_layernorm.MAX_EXTRAS, True)
+    for nelec in [*range(1, 17), *([30] if compute_l2 else [])]:
+        c, e = jet_shape(nelec, compute_l2)
+        for residual in (True, False):
+            assert jet_layernorm.stage_bytes(feat, c, e, residual) <= largest
+            want = "streamed" if nelec == 6 and residual else "staged"
+            got = jet_layernorm.route(feat, c, e, residual, rows, True, 1)
+            assert got == want, (nelec, residual)
+
+
 def test_kernel_limits_name_what_they_refuse():
     feat, heads = 256, 4
     c, e = jet_shape(30, True)  # 347,040 bytes of shared memory

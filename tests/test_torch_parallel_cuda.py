@@ -64,7 +64,7 @@ data = parallel.shard_rows(torch.as_tensor(state.data)).to(device)
 for fn in (jl.layernorm_jet, ja.attention_jet, ja.jet_gemm, ja.softmax_values):
     fn.launches = 0
 ja.jet_gemm.launches_tensor_core = ja.softmax_values.launches_tiled = 0
-jl.layernorm_jet.launches_streamed = 0
+jl.layernorm_jet.launches_streamed = jl.layernorm_jet.launches_staged = 0
 with torch.no_grad():
     el, _ = forward_laplacian_local_energy(model, cfg.system)(data)
 torch.cuda.synchronize()
@@ -72,7 +72,8 @@ out.update(
     walkers=int(data.shape[0]), finite=bool(torch.isfinite(el).all()),
     energy=parallel.all_reduce_mean(el.real.mean()).item(),
     launches=dict(layernorm=jl.layernorm_jet.launches, streamed=jl.layernorm_jet.launches_streamed,
-                  gemm=ja.jet_gemm.launches, tensor_core=ja.jet_gemm.launches_tensor_core,
+                  staged=jl.layernorm_jet.launches_staged, gemm=ja.jet_gemm.launches,
+                  tensor_core=ja.jet_gemm.launches_tensor_core,
                   softmax=ja.softmax_values.launches, tiled=ja.softmax_values.launches_tiled),
 )
 parallel.shutdown_distributed()
@@ -126,13 +127,13 @@ def check_collectives(outs: list[dict]) -> None:
 
 def check_kernels(outs: list[dict], walkers: int) -> None:
     # Every launch on a shard took the kernel built for the production shapes:
-    # 2 layers, so 4 LayerNorms (streamed), 4 GEMMs (tensor cores) and 2
-    # softmax-values (tiled) per local energy.
+    # 2 layers, so 4 LayerNorms (streamed, none staged), 4 GEMMs (tensor
+    # cores) and 2 softmax-values (tiled) per local energy.
     for got in outs:
         assert got["walkers"] == walkers and got["finite"]
         launches = got["launches"]
-        assert launches == dict(layernorm=4, streamed=4, gemm=4, tensor_core=4, softmax=2,
-                                tiled=2), launches
+        assert launches == dict(layernorm=4, streamed=4, staged=0, gemm=4, tensor_core=4,
+                                softmax=2, tiled=2), launches
     assert len({got["energy"] for got in outs}) == 1  # the global mean on every rank
 
 
