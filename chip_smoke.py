@@ -7,7 +7,8 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
 
 1. environment: torch, the card, its power limit, the TF32 flags (both off);
 2. build: compiles ``deephall_tpu_torch/csrc/*.cu`` (one nvcc each, in
-   parallel); ptxas must report no spill for the staged jet LayerNorm;
+   parallel); ptxas must report no spill for the staged jet LayerNorm or
+   the streamed softmax/values kernel;
 3. kernels: every kernel against its plain PyTorch version at the production
    shapes (B=3360 walkers, T=6, D=256, H=4) in both jet modes, (C, E) = (15, 3)
    with L^2 and (13, 1) without, with each one's time, its plain version's
@@ -150,19 +151,22 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
    finite purity;
 16. large_n: systems beyond N = 6.  Every kernel of the jet (the staged
    LayerNorm with and without a residual, the whole attention, its q/k/v
-   projection on the tensor cores and the plane-streaming softmax/values
-   kernel) against its plain version (2e-5) at B = 3360, D = 256, H = 4 and
+   projection on the tensor cores and the streamed softmax/values kernel,
+   with the heads of an item and the stages of its ring the library chose)
+   against its plain version (2e-5) at B = 3360, D = 256, H = 4 and
    (N, C, E) = (8, 19, 3), (10, 21, 1), (10, 23, 3), (12, 25, 1), (12, 27, 3),
    (16, 35, 3), with each one's time, its plain version's and its bound; the
    LayerNorm beside a plain pass over the same bytes and the generic kernel
    on the same inputs (in turns: staged, generic, generic, staged), and the
-   staged kernel's launch counter must show that it took each launch.
+   launch counters must show that the staged and the streamed kernels took
+   each launch.
    The N = 10, 2Q = 27 production state (``artifacts/prod_n10_r5``) through
    the CLI: 20 inference iterations at batch 3360, the mean energy within
    0.01 of 14.27791 (``BASELINE.md``); 5 with ``system.compute_l2=true``, L^2
    < 1 (the trained state's own L^2 is 0.55); 5 KFAC iterations resuming its curvature (step 27730 to 27735),
    finite and within 0.02; each run's launches those of its local energies on
-   the staged LayerNorm and the plane-streaming kernel.  336 of its walkers
+   the staged LayerNorm and the streamed softmax/values kernel (none tiled).
+   336 of its walkers
    through the kernels, the plain versions and float64 in both modes, with
    the gates of phases ``end_to_end`` and ``train``.  A fresh N = 12, 2Q = 23
    production block (seed 42, L^2 on, no checkpoint): 2 KFAC iterations,
@@ -486,7 +490,7 @@ def kernel_rows(device, rates, c: int, e: int, tokens: int = TOKENS, batch: int 
     with its time, its plain version's and its bound: the jet LayerNorm
     (:func:`layernorm_rows`), the whole attention, its two projections on the
     tensor cores, and the softmax/values core (tiled at the production shapes,
-    plane-streaming elsewhere)."""
+    streamed elsewhere, with the library's plan for the streamed kernel)."""
     from deephall_tpu_torch.ops import jet_attention as ja
 
     production = tokens == TOKENS and (c, e) in MODES
@@ -554,10 +558,12 @@ def kernel_rows(device, rates, c: int, e: int, tokens: int = TOKENS, batch: int 
     )
     if ja.softmax_values.launches_tiled != before + production:
         raise AssertionError(
-            f"jet_softmax_values {shape}: not the {'tiled' if production else 'plane-streaming'} kernel")
+            f"jet_softmax_values {shape}: not the {'tiled' if production else 'streamed'} kernel")
     sv_bound = bound(4 * elems * 4, core_flops, rates)
+    plan = {} if production else dict(zip(("group", "stages", "threads"),
+                                            ja.streamed_plan(device, tokens, FEAT, HEADS)))
     results["jet_softmax_values"] = against(dict(
-        **err,
+        **err, **plan,
         ms=cuda_ms(lambda: ja.softmax_values(qkv, batch, tokens, HEADS, c, e)),
         plain_ms=cuda_ms(lambda: ja.softmax_values_plain(qkv, batch, tokens, HEADS, c, e), reps=5),
         bound_ms=sv_bound[0], bound_by=sv_bound[1], library_ms=None,
@@ -1111,7 +1117,7 @@ def launches_per_local_energy(layers: int = 2, production: bool = True) -> dict:
     """Each kernel's launches in one local energy of the production Psiformer;
     every launch of the production shapes (N = 6) takes the kernel built for
     them, and at any other N (``production`` false) the staged LayerNorm and
-    the plane-streaming softmax/values kernel take every launch."""
+    the streamed softmax/values kernel take every launch."""
     built = int(production)
     return {
         "jet_layernorm": 2 * layers, "jet_attention": layers, "jet_gemm": 2 * layers,
@@ -2480,8 +2486,9 @@ def main() -> int:
     }
     emit(phase="build", seconds=time.perf_counter() - start, libraries=sorted(libraries), ptxas=ptxas)
     spilled = spills(ptxas["jet_layernorm"], "jet_layernorm_staged_kernel")
+    spilled += spills(ptxas["jet_attention"], "jet_softmax_values_streamed_kernel")
     if spilled:
-        raise AssertionError(f"build: the staged LayerNorm spills: {spilled}")
+        raise AssertionError(f"build: a kernel spills: {spilled}")
 
     kernels = phase_kernels(device, rates)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
@@ -2542,6 +2549,14 @@ def main() -> int:
     table.append(dict(name="jet_layernorm_staged", route="cuda", source=sources["jet_layernorm"][0],
                       replaces=sources["jet_layernorm"][1], shape="N10C23E3",
                       launches=large_counts["jet_layernorm_staged"], **table_numbers(staged)))
+    # The streamed softmax/values kernel, which takes every attention launch
+    # beyond N = 6: its own row at N = 10 with L^2, its launches in phase large_n.
+    streamed = large_kernels["N10C23E3"]["jet_softmax_values"]
+    table.append(dict(name="jet_softmax_values_streamed", route="cuda",
+                      source=sources["jet_softmax_values"][0], replaces=sources["jet_softmax_values"][1],
+                      shape="N10C23E3",
+                      launches=large_counts["jet_softmax_values"] - large_counts["jet_softmax_values_tiled"],
+                      **table_numbers(streamed)))
     print(smi, flush=True)
     emit(kernels=table)
     emit(ok=True, device={"platform": "gpu", "kind": name, "count": torch.cuda.device_count()})

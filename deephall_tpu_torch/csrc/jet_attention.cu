@@ -9,9 +9,9 @@
 //
 //   1. jet_gemm: rows[P*B*T, D] @ Wqkv[D, 3D], bias on the primal rows only
 //      (1/sqrt(dh) folded into wq and bq by the caller);
-//   2. jet_softmax_values: one block per (walker, head) computes the logits
-//      jet, the softmax jet and the value-contraction jet of that head's
-//      q, k, v slices in shared memory;
+//   2. jet_softmax_values: the logits jet, the softmax jet and the
+//      value-contraction jet of each (walker, head) from that head's q, k, v
+//      slices, staged in shared memory;
 //   3. jet_gemm: attn[P*B*T, D] @ Wo[D, D], bias on the primal rows only.
 //
 // Each of the two has a kernel designed for the production shapes and one
@@ -59,14 +59,46 @@
 // 16-byte feature chunk).  Its double-buffered stage of every plane needs
 // 368 KB at N = 10 (T = 10, P = 28), so it is compiled for T = 6 alone.
 //
-// jet_softmax_values at every other shape (jet_softmax_values_planes_kernel).
-// Keeping q, k, v of every plane resident (3 P T (dh + 1) floats) would pass
-// the card's 227 KB at N = 10 with L^2 (254 KB) and at every N = 12.  Each
-// tangent and extra plane needs only its own q, k, v and the primal's, so the
-// planes are streamed through a buffer of four, and shared memory holds the
-// primal, that buffer and the [P][T][T] jets: 92 KB at N = 16 with L^2.
-// Bound by bytes as the tiled kernel; the products are read from shared
-// memory by scalar loads.
+// jet_softmax_values at every other shape (jet_softmax_values_streamed_kernel,
+// run-time T, dh, C and E).  Keeping q, k, v of every plane resident (3 P T dh
+// floats) passes the card's 227 KB at N = 10 with L^2, and the tiled kernel's
+// two stages of them at N = 8.  But a tangent plane p needs only its own q,
+// k, v and the primal's: G_p = q_p k0^T + q0 k_p^T, X_p = X0 G_p, S_p, R_p =
+// -S_p R0^2, W_p = X_p R0 + X0 R_p, out_p = W_p v0 + W0 v_p; the Laplacian
+// and extra planes need besides only sums over their tangents of q_k k_k^T,
+// G_k^2, S_k^2, X_k R_k and W_k v_k, which each tangent adds as it passes.
+// So the planes are streamed once, the primal first, then the Laplacian
+// tangents, the Laplacian, and each extra tangent followed by its second
+// derivative (two slots then hold every cross term), and q, k, v of each
+// are read exactly once.  What bounds it: in principle bytes (3 reads and a
+// write of each plane element; the arithmetic is 6 T dh FMAs a tangent row,
+// 35% of the byte time at N = 10, 57% at N = 16), in practice the
+// instruction throughput of the products and of their 16-byte shared-memory
+// loads (a warp's costs 4 shared-memory cycles whatever the lanes read), so
+// the design raises the FMAs a load feeds and the work between barriers.
+//   Items are (walker, group of heads), every head where two stages fit
+// (then one plane of an item is T contiguous rows of 3D floats).  One
+// persistent block an SM takes a run of consecutive items: a producer warp
+// copies each plane's rows by 1-D bulk asynchronous copies (the Tensor Memory
+// Accelerator) into a ring of up to 4 stages with a "full" and an "empty"
+// mbarrier each, while 256 or 320 computing threads (the fewest that
+// give each a unit of the value contraction) take every plane in order, so a
+// wait by parity is right at any ring length.  The primal's stage is copied
+// aside at the item's start.  A plane takes three phases between two
+// barriers: the logits (a thread owns a 4x2 tile, 4x4 where T is a multiple
+// of 4 from 12, of (query, source) over a quarter of dh; the four lanes add
+// their parts by a reduce-scatter), the softmax (four or eight lanes a
+// query row) and the value contraction (two or four query rows of one
+// 16-byte feature chunk).  With three stages or more the Laplacian tangents
+// go two a step: a thread computes the same tile of both planes, which share
+// the primal's loads, and adds both into slot 0 in plane order; every cross
+// sum has one owner.  Units are decoded by multiply-high divisions whose
+// constants are kernel parameters.  Rows are padded to 4 banks apart, so
+// eight lanes' 16-byte reads of eight rows do not collide.  No tensor cores: the products
+// are T x T x dh with T = 8-25, far below a wgmma tile, and float32 products
+// would need the GEMM's three TF32 products.  Fields off the 16-byte grid, or
+// dh % 4 != 0, are copied float by float by the producer warp and stored
+// float by float.
 //
 // Plane order everywhere: 0 = x, 1..C = j, C+1 = l, C+2..C+1+E = d; the first
 // lap = C - E tangents are the Laplacian directions.
@@ -397,270 +429,794 @@ __global__ void __launch_bounds__(GEMM_THREADS) jet_gemm_kernel(
   }
 }
 
-// ---- jet_softmax_values at any shape: planes streamed through shared memory --------
+// ---- jet_softmax_values at any shape: planes streamed through a ring ------------
 
-namespace sv_planes {
+namespace sv_streamed {
 
-constexpr int THREADS = 256;
-constexpr int CHUNK = 4;  // planes of q and k (or of v) a block holds at once
+constexpr int kMaxStages = 4;
+constexpr int kSlices = 4;  // lanes a tile of logits splits dh over
+constexpr int kMaxDevices = 64;
+constexpr unsigned kFull = 0xffffffffu;
+// The computing threads a block may have (besides its producer warp); the
+// plan takes the fewest that give each a unit of the value contraction.
+constexpr int kWidths[2] = {256, 320};
 
-// Offsets in floats of the shared-memory layout of one (walker, head).
-struct Layout {
-  int ld, q0, k0, v0, qc, kc, m, s, r, cmax, total;
+// The block's dynamic shared memory, addressed by offsets (32-bit shared addresses).
+extern __shared__ __align__(16) float sv_smem[];
+
+// What a probe build leaves out; kWhole is the kernel.
+enum Probe { kWhole = 0, kNoStore = 1, kNoMath = 2 };
+
+// Division of 0 <= x < 2^31 by a run-time d >= 1 as (umulhi(x, m) + x) >> s,
+// s = ceil(log2 d), m = floor(2^32 (2^s - d) / d) + 1: two instructions
+// instead of a division's twenty.  The kernel reads these from its parameters.
+struct FastDiv {
+  uint32_t m, s;
 };
 
-// The primal q, k, v as [T][dh + 1] (the padding keeps rows in distinct
-// banks); a chunk of CHUNK planes of q and of k, [CHUNK][T][dh + 1] each (the
-// value pass holds CHUNK planes of v in the first and its cross sums,
-// [1 + E][T][dh], in the second); the logits / exponential / weights jet M as
-// [P][T][T]; the sum and reciprocal jets S, R as [P][T]; the row maxima [T].
+inline FastDiv fast_div(uint32_t d) {
+  uint32_t s = 0;
+  while ((1ull << s) < d) ++s;
+  return {static_cast<uint32_t>((1ull << 32) * ((1ull << s) - d) / d + 1), s};
+}
+
+__device__ __forceinline__ int fdiv(int x, const FastDiv& f) {
+  return static_cast<int>((__umulhi(static_cast<uint32_t>(x), f.m) + static_cast<uint32_t>(x)) >> f.s);
+}
+
+struct Args {
+  const float* qkv;
+  float* attn;
+  int64_t batch;
+  int tokens, feat, heads, c, e;
+  int group;      // heads of one item
+  int stages;     // planes in the ring
+  int row_lanes;  // lanes of one softmax row: 4 or 8
+  int wide;       // 4x4 logits tiles and four-row value units (else 4x2 and two rows)
+  // Divisors of the units' decoding: T, tile rows, tile columns (4x2, 4x4),
+  // 16-byte chunks of dh, value row blocks (two, four rows), stages.
+  FastDiv by_tokens, by_rows, by_cols2, by_cols4, by_chunks, by_blocks2, by_blocks4, by_stages;
+};
+
+// Offsets in floats of a block's shared memory.  A stage holds one plane of
+// one item: T rows (rounded up to tp, a multiple of 4) of the group's q, k
+// and v, [q | k | v] of group * dhp floats each (dhp: dh rounded up to 4), at
+// a row stride ldr = 4 (mod 8) floats, so that eight lanes' 16-byte loads of
+// eight rows fall on distinct banks.  Rows past T and columns past dh stay
+// zero.  The primal's stage is copied once an item, and the ring follows.
+// Per head of the group: the logits G and the weights W of two planes
+// [2][tp][tp] (a pair of Laplacian tangents; one plane uses the first), the
+// primal's exponential X0 and weights W0 [tp][tp], its reciprocal R0 [tp].
+// Two slots of cross terms (0: summed over the Laplacian tangents, 1: the
+// extra tangent whose second derivative comes next), per head: sum q_k k_k,
+// sum G_k^2 and sum X_k R_k [tp][tp], sum S_k^2 [tp], sum W_k v_k [tp][dhp].
+// Then a full and an empty mbarrier for each stage.
 // ops/jet_attention.py:softmax_values_smem mirrors this sum.
-__host__ __device__ inline Layout layout(int P, int T, int dh, int E) {
+struct Layout {
+  int64_t tp, dhp, gw, ldr, stage;
+  int64_t ring, g, w, x0, w0, r0, cg, sg, cxr, ss, cwv, floats, bytes;
+};
+
+__host__ __device__ inline Layout layout(int64_t T, int64_t dh, int64_t group, int64_t stages) {
   Layout a;
-  a.ld = dh + 1;
-  const int row = T * a.ld;
-  const int chunk = CHUNK * row;
-  const int sums = (1 + E) * T * dh;
-  a.q0 = 0;
-  a.k0 = row;
-  a.v0 = 2 * row;
-  a.qc = 3 * row;
-  a.kc = a.qc + chunk;
-  a.m = a.kc + (chunk > sums ? chunk : sums);
-  a.s = a.m + P * T * T;
-  a.r = a.s + P * T;
-  a.cmax = a.r + P * T;
-  a.total = a.cmax + T;
+  a.tp = (T + 3) / 4 * 4;
+  a.dhp = (dh + 3) / 4 * 4;
+  a.gw = group * a.dhp;
+  a.ldr = 3 * a.gw % 8 == 0 ? 3 * a.gw + 4 : 3 * a.gw;
+  a.stage = a.tp * a.ldr;
+  const int64_t tt = a.tp * a.tp;
+  a.ring = a.stage;
+  a.g = a.ring + stages * a.stage;
+  a.w = a.g + 2 * group * tt;
+  a.x0 = a.w + 2 * group * tt;
+  a.w0 = a.x0 + group * tt;
+  a.r0 = a.w0 + group * tt;
+  a.cg = a.r0 + group * a.tp;
+  a.sg = a.cg + 2 * group * tt;
+  a.cxr = a.sg + 2 * group * tt;
+  a.ss = a.cxr + 2 * group * tt;
+  a.cwv = a.ss + 2 * group * a.tp;
+  a.floats = a.cwv + 2 * group * a.tp * a.dhp;
+  a.bytes = 4 * a.floats + 16 * stages;
   return a;
 }
 
-// One block per (walker, head).  qkv: [P, B, T, 3D] (q | k | v along the last
-// axis); attn: [P, B, T, D].  Two passes over the planes, CHUNK at a time in
-// plane order: the logits pass reads each plane's q and k once, the value
-// pass each plane's v once, and only the primal's q, k, v and the [P][T][T]
-// jets stay resident, so shared memory grows with P T^2 + T dh.  In the
-// logits pass a thread owns a (query, source) pair for every plane and keeps
-// the l and d planes' cross sums q_k.k_k in M until their own plane arrives;
-// in the value pass it owns a (query, feature) pair and keeps w_k.v_k in the
-// cross sums.  Each sum is taken by one thread in plane order.
-__global__ void __launch_bounds__(THREADS) jet_softmax_values_planes_kernel(
-    const float* __restrict__ qkv, float* __restrict__ attn, int P, int64_t batch, int T,
-    int D, int H, int C, int E) {
-  extern __shared__ float smem[];
-  const int dh = D / H;
-  const Layout L = layout(P, T, dh, E);
-  const int ld = L.ld;
-  const int lap = C - E;
-  const int TT = T * T;
-  const int64_t b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
-  const int tid = threadIdx.x;
-  float* q0 = smem + L.q0;
-  float* k0 = smem + L.k0;
-  float* v0 = smem + L.v0;
-  float* qc = smem + L.qc;
-  float* kc = smem + L.kc;
-  float* M = smem + L.m;
-  float* S = smem + L.s;
-  float* R = smem + L.r;
-  float* cmax = smem + L.cmax;
-  // Row t of plane p's q slice; k and v follow at +D and +2D.
-  auto row = [&](int p, int t) {
-    return qkv + ((static_cast<int64_t>(p) * batch + b) * T + t) * 3 * D + h * dh;
-  };
+__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_address(bar)), "r"(count) : "memory");
+}
 
-  for (int i = tid; i < T * dh; i += THREADS) {
-    const int t = i / dh, f = i % dh;
-    const float* src = row(0, t) + f;
-    q0[t * ld + f] = src[0];
-    k0[t * ld + f] = src[D];
-    v0[t * ld + f] = src[2 * D];
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_address(bar)) : "memory");
+}
+
+// The one arrival of a phase, with the bytes its copies will bring.
+__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(smem_address(bar)), "r"(bytes) : "memory");
+}
+
+// Waits until the phase of parity `parity` has completed.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra LAB_WAIT;\n"
+      "}\n" ::"r"(smem_address(bar)), "r"(parity) : "memory");
+}
+
+// `bytes` from global `src` to shared `dst`, completing on `bar`; both 16-byte aligned.
+__device__ __forceinline__ void bulk_load(float* dst, const float* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_address(dst)), "l"(src), "r"(bytes), "r"(smem_address(bar)) : "memory");
+}
+
+// The barrier of the NC computing threads (the producer warp does not take part).
+template <int NC>
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(NC) : "memory");
+}
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void put4(float* p, const float4& v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+__device__ __forceinline__ float dot4(const float4& a, const float4& b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+__device__ __forceinline__ void axpy4(float4& acc, float w, const float4& v) {
+  acc.x = fmaf(w, v.x, acc.x), acc.y = fmaf(w, v.y, acc.y);
+  acc.z = fmaf(w, v.z, acc.z), acc.w = fmaf(w, v.w, acc.w);
+}
+
+__device__ __forceinline__ float part(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// Features f .. f + 3 of an output row: one 16-byte store, or those below dh.
+template <bool VEC>
+__device__ __forceinline__ void store4(float* row, int f, int dh, const float4& v) {
+  if constexpr (VEC) {
+    __stcs(reinterpret_cast<float4*>(row + f), v);
+  } else {
+    if (f < dh) row[f] = v.x;
+    if (f + 1 < dh) row[f + 1] = v.y;
+    if (f + 2 < dh) row[f + 2] = v.z;
+    if (f + 3 < dh) row[f + 3] = v.w;
   }
-  for (int i = tid; i < (1 + E) * TT; i += THREADS) M[(C + 1) * TT + i] = 0.f;
+}
 
-  // Logits jet: G_p = q_p.k_0 + q_0.k_p, plus twice the cross term over the
-  // Laplacian tangents (l plane) or over the matching extra tangent (d planes).
-  for (int p0 = 0; p0 < P; p0 += CHUNK) {
-    const int np = P - p0 < CHUNK ? P - p0 : CHUNK;
-    __syncthreads();
-    for (int i = tid; i < np * T * dh; i += THREADS) {
-      const int j = i / (T * dh), t = (i / dh) % T, f = i % dh;
-      const float* src = row(p0 + j, t) + f;
-      qc[(j * T + t) * ld + f] = src[0];
-      kc[(j * T + t) * ld + f] = src[D];
-    }
-    __syncthreads();
-    for (int i = tid; i < TT; i += THREADS) {
-      const int t = i / T, s = i % T;
-      const float* qx = q0 + t * ld;
-      const float* kx = k0 + s * ld;
-      float a[CHUNK], g[CHUNK], cross[CHUNK];
+// The planes of one item as NC computing threads see them.  KIND 0 is the
+// primal, 1 a tangent j_k, 2 the Laplacian or an extra second derivative;
+// `cs` is the slot of cross terms a tangent sets (`assign`) or adds to, or a
+// second-order plane reads.  [tp][tp] arrays of head j start at j * tp^2.
+template <int NC>
+struct Planes {
+  // Offsets in sv_smem: the primal's stage (copied at the item's start), the
+  // logits G and weights W of the step's planes, X0, W0, R0 and the slots.
+  int prim_, g_, w_, x0_, w0_, r0_, cg_, sg_, cxr_, ss_, cwv_;
+  int T, tp, ldr, gw, dhp, dh, group, row_lanes;
+  const Args* args;  // the kernel's parameters (its divisors)
+
+  // G = q_p k0^T + q0 k_p^T (the primal: q0 k0^T; a second-order plane adds
+  // 2 sum q_k k_k), and for a tangent q_p k_p^T and G^2 into its slot, of NP
+  // planes at once (NP = 2: two Laplacian tangents, which share the primal's
+  // loads and add into slot 0 in plane order).  A unit is a 4 x TC tile of
+  // (query, source) of one head; its four lanes take the 16-byte chunks r,
+  // r + 4, ... of dh and add their parts by a reduce-scatter, after which each
+  // writes a quarter of the tile's sums: for a tangent, lanes 0 and 1 rows
+  // 0-1 and 2-3 of G, lanes 2 and 3 those of q_p k_p^T, of every plane, so
+  // that one lane owns each element of the slot.
+  template <int KIND, int TC, int NP>
+  __device__ __forceinline__ void logits(const float* st0, const float* st1, int cs, bool assign,
+                                         int tid) const {
+    const float* prim = sv_smem + prim_;
+    float *G = sv_smem + g_, *W = sv_smem + w_, *X0 = sv_smem + x0_, *W0 = sv_smem + w0_;
+    float *R0 = sv_smem + r0_, *CG = sv_smem + cg_, *SG = sv_smem + sg_, *CXR = sv_smem + cxr_;
+    float *SS = sv_smem + ss_, *CWV = sv_smem + cwv_;
+    static_assert(NP == 1 || KIND == 1, "two planes at once are tangents");
+    const int tt = tp * tp, rows = (T + 3) / 4, cols = (T + TC - 1) / TC;
+    const int units = group * rows * cols * kSlices;
+    constexpr int M = 4 * TC;                     // sums of G in the tile, a plane
+    constexpr int N = (KIND == 1 ? 2 : 1) * M * NP;  // and of q_p k_p^T
+    constexpr int Q = N / 4;                      // sums a lane keeps
+    // Where (plane, row i, column c) of G (or of q_p k_p^T, + N / 2) sits in val.
+    const auto at = [](int pl, int i, int c) {
+      return KIND == 1 ? i / 2 * Q + pl * 2 * TC + i % 2 * TC + c : i * TC + c;
+    };
+#pragma unroll 1
+    for (int u0 = 0; u0 < units; u0 += NC) {
+      const int u = u0 + tid;
+      const int v = u < units ? u : 0;
+      const int r = v % kSlices, tile = v / kSlices;
+      const int q1 = fdiv(tile, TC == 4 ? args->by_cols4 : args->by_cols2);
+      const int j = fdiv(q1, args->by_rows);
+      const int s0 = TC * (tile - q1 * cols), t0 = 4 * (q1 - j * rows);
+      const int qo = t0 * ldr + j * dhp, ko = gw + s0 * ldr + j * dhp;
+      const float* q0 = (KIND == 0 ? st0 : prim) + qo;
+      const float* k0 = (KIND == 0 ? st0 : prim) + ko;
+      float val[N] = {};
+      for (int f = 4 * r; f < dhp; f += 4 * kSlices) {
+        float4 qp[NP][4], kx[TC];
 #pragma unroll
-      for (int j = 0; j < CHUNK; ++j) a[j] = g[j] = cross[j] = 0.f;
-      for (int f = 0; f < dh; ++f) {
-        const float q = qx[f], k = kx[f];
+        for (int c = 0; c < TC; ++c) kx[c] = load4(k0 + c * ldr + f);
 #pragma unroll
-        for (int j = 0; j < CHUNK; ++j) {
-          const float qp = qc[(j * T + t) * ld + f], kp = kc[(j * T + s) * ld + f];
-          a[j] = fmaf(qp, k, a[j]);
-          g[j] = fmaf(q, kp, g[j]);
-          cross[j] = fmaf(qp, kp, cross[j]);
+        for (int pl = 0; pl < NP; ++pl) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) qp[pl][i] = load4((pl ? st1 : st0) + qo + i * ldr + f);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int c = 0; c < TC; ++c) val[at(pl, i, c)] = dot4(qp[pl][i], kx[c], val[at(pl, i, c)]);
+        }
+        if constexpr (KIND != 0) {
+          float4 qx[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) qx[i] = load4(q0 + i * ldr + f);
+#pragma unroll
+          for (int pl = 0; pl < NP; ++pl) {
+#pragma unroll
+            for (int c = 0; c < TC; ++c) kx[c] = load4((pl ? st1 : st0) + ko + c * ldr + f);  // k_p
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int c = 0; c < TC; ++c) {
+                val[at(pl, i, c)] = dot4(qx[i], kx[c], val[at(pl, i, c)]);
+                if constexpr (KIND == 1) val[N / 2 + at(pl, i, c)] = dot4(qp[pl][i], kx[c], val[N / 2 + at(pl, i, c)]);
+              }
+          }
         }
       }
+      // Reduce-scatter over lanes r ^ 2, then r ^ 1: lane r keeps sums [r Q, (r + 1) Q).
+      float half[N / 2], quarter[Q];
+      const bool up = (r & 2) != 0, right = (r & 1) != 0;
 #pragma unroll
-      for (int j = 0; j < CHUNK; ++j) {
-        const int p = p0 + j;
-        if (p >= P) break;
-        float* m = M + p * TT + i;
-        if (p == 0) {
-          *m = a[j];
-        } else if (p <= C) {
-          *m = a[j] + g[j];
-          const int k = p - 1;
-          if (k < lap) {
-            M[(C + 1) * TT + i] += cross[j];
+      for (int i = 0; i < N / 2; ++i) {
+        const float send = up ? val[i] : val[i + N / 2];
+        half[i] = (up ? val[i + N / 2] : val[i]) + __shfl_xor_sync(kFull, send, 2);
+      }
+#pragma unroll
+      for (int i = 0; i < Q; ++i) {
+        const float send = right ? half[i] : half[i + Q];
+        quarter[i] = (right ? half[i + Q] : half[i]) + __shfl_xor_sync(kFull, send, 1);
+      }
+      if (u >= units) continue;
+      float* cg = CG + (cs * group + j) * tt;
+      float* sg = SG + (cs * group + j) * tt;
+#pragma unroll
+      for (int k = 0; k < Q; ++k) {
+        // Sum k of lane r: its plane, row and column in the tile.
+        const int pl = KIND == 1 ? k / (2 * TC) : 0;
+        const int i = KIND == 1 ? 2 * (r % 2) + k % (2 * TC) / TC : r;
+        const int e = (t0 + i) * tp + s0 + k % TC;
+        float* g = G + pl * group * tt + j * tt;
+        const float x = quarter[k];
+        if constexpr (KIND == 0) {
+          g[e] = x;
+          cg[e] = sg[e] = 0.f;
+        } else if constexpr (KIND == 1) {
+          if (r < 2) {
+            g[e] = x;
+            sg[e] = assign ? x * x : fmaf(x, x, sg[e]);
           } else {
-            M[(C + 2 + k - lap) * TT + i] = cross[j];
+            cg[e] = assign ? x : cg[e] + x;
           }
         } else {
-          *m = a[j] + g[j] + 2.f * *m;
+          g[e] = fmaf(2.f, cg[e], x);
         }
       }
     }
   }
-  __syncthreads();
 
-  // exp jet of the max-shifted logits (the shift is a constant and cancels),
-  // in place: a thread reads every plane of its (query, source) pair first.
-  for (int t = tid; t < T; t += THREADS) {
-    float c0 = M[t * T];
-    for (int s = 1; s < T; ++s) c0 = fmaxf(c0, M[t * T + s]);
-    cmax[t] = c0;
-  }
-  __syncthreads();
-  for (int i = tid; i < TT; i += THREADS) {
-    float* m = M + i;
-    const float ex = expf(m[0] - cmax[i / T]);
-    for (int q = 0; q < E; ++q) {
-      const float gj = m[(1 + lap + q) * TT];
-      m[(C + 2 + q) * TT] = ex * (m[(C + 2 + q) * TT] + gj * gj);
-    }
-    float jsq = 0.f;
-    for (int k = 0; k < C; ++k) {
-      const float gj = m[(1 + k) * TT];
-      m[(1 + k) * TT] = ex * gj;
-      if (k < lap) jsq += gj * gj;
-    }
-    m[(C + 1) * TT] = ex * (m[(C + 1) * TT] + jsq);
-    m[0] = ex;
-  }
-  __syncthreads();
-
-  // Sum over the sources.
-  for (int i = tid; i < P * T; i += THREADS) {
-    float acc = 0.f;
-    for (int s = 0; s < T; ++s) acc += M[i * T + s];
-    S[i] = acc;
-  }
-  __syncthreads();
-
-  // Reciprocal jet: f1 = -1/s^2, f2 = 2/s^3.
-  for (int i = tid; i < P * T; i += THREADS) {
-    const int p = i / T, t = i % T;
-    const float rx = 1.f / S[t];
-    const float rx2 = rx * rx, rx3 = rx2 * rx;
-    float r;
-    if (p == 0) {
-      r = rx;
-    } else if (p <= C) {
-      r = -S[i] * rx2;
-    } else if (p == C + 1) {
-      float sq = 0.f;
-      for (int k = 0; k < lap; ++k) sq += S[(1 + k) * T + t] * S[(1 + k) * T + t];
-      r = -S[i] * rx2 + 2.f * rx3 * sq;
-    } else {
-      const float sj = S[(1 + lap + p - C - 2) * T + t];
-      r = -S[i] * rx2 + 2.f * rx3 * sj * sj;
-    }
-    R[i] = r;
-  }
-  __syncthreads();
-
-  // Weights jet w = e * r (product rule with the cross term), in place: the
-  // l and d planes first, while the tangents still hold e.
-  for (int i = tid; i < TT; i += THREADS) {
-    const int t = i / T;
-    float* m = M + i;
-    const float ex = m[0], rx = R[t];
-    float cross = 0.f;
-    for (int k = 1; k <= lap; ++k) cross += m[k * TT] * R[k * T + t];
-    m[(C + 1) * TT] = m[(C + 1) * TT] * rx + ex * R[(C + 1) * T + t] + 2.f * cross;
-    for (int q = 0; q < E; ++q) {
-      const int k = 1 + lap + q;
-      m[(C + 2 + q) * TT] =
-          m[(C + 2 + q) * TT] * rx + ex * R[(C + 2 + q) * T + t] + 2.f * m[k * TT] * R[k * T + t];
-    }
-    for (int k = 1; k <= C; ++k) m[k * TT] = m[k * TT] * rx + ex * R[k * T + t];
-    m[0] = ex * rx;
-  }
-
-  // Value contraction jet W_p v_0 + W_0 v_p, plus twice the cross sums
-  // w_k.v_k, written to attn[p, b, t, h*dh + f].  The cross sums live where
-  // the k chunk was; each (query, feature) pair's belong to one thread.
-  float* vc = qc;
-  float* sums = kc;
-  const int items = T * dh;
-  for (int i = tid; i < items; i += THREADS) sums[i] = 0.f;
-  for (int p0 = 0; p0 < P; p0 += CHUNK) {
-    const int np = P - p0 < CHUNK ? P - p0 : CHUNK;
-    __syncthreads();
-    for (int i = tid; i < np * items; i += THREADS) {
-      const int j = i / items, t = (i / dh) % T, f = i % dh;
-      vc[(j * T + t) * ld + f] = row(p0 + j, t)[2 * D + f];
-    }
-    __syncthreads();
-    for (int i = tid; i < items; i += THREADS) {
-      const int t = i / dh, f = i % dh;
-      const float* w0 = M + t * T;
-      const float* wp[CHUNK];
-#pragma unroll
-      for (int j = 0; j < CHUNK; ++j) wp[j] = M + ((p0 + j < P ? p0 + j : P - 1) * T + t) * T;
-      float a[CHUNK], g[CHUNK], cross[CHUNK];
-#pragma unroll
-      for (int j = 0; j < CHUNK; ++j) a[j] = g[j] = cross[j] = 0.f;
-      for (int s = 0; s < T; ++s) {
-        const float v = v0[s * ld + f], w = w0[s];
-#pragma unroll
-        for (int j = 0; j < CHUNK; ++j) {
-          const float wj = wp[j][s], vj = vc[(j * T + s) * ld + f];
-          a[j] = fmaf(wj, v, a[j]);
-          g[j] = fmaf(w, vj, g[j]);
-          cross[j] = fmaf(wj, vj, cross[j]);
+  // The exponential, sum, reciprocal and weights jets of one query row of one
+  // head, of NP planes in turn; `row_lanes` lanes share a row, lane r taking
+  // sources r, r + row_lanes, ...  The primal shifts by its row maximum (a
+  // constant that cancels).
+  //   tangent:  X = X0 G, S = sum X, R = -S R0^2, W = X R0 + X0 R; X R and
+  //             S^2 into its slot;
+  //   second:   X = X0 (G + sum G_k^2), R = -S R0^2 + 2 R0^3 sum S_k^2,
+  //             W = X R0 + X0 R + 2 sum X_k R_k.
+  template <int KIND, int NP>
+  __device__ __forceinline__ void softmax(int cs, bool assign, int tid, int lane) const {
+    const float* prim = sv_smem + prim_;
+    float *G = sv_smem + g_, *W = sv_smem + w_, *X0 = sv_smem + x0_, *W0 = sv_smem + w0_;
+    float *R0 = sv_smem + r0_, *CG = sv_smem + cg_, *SG = sv_smem + sg_, *CXR = sv_smem + cxr_;
+    float *SS = sv_smem + ss_, *CWV = sv_smem + cwv_;
+    const int tt = tp * tp, rl = row_lanes;
+    const unsigned mask = ((1u << rl) - 1) << (lane & ~(rl - 1));
+    for (int u = tid; u < group * T * rl; u += NC) {
+      const int row = u >> (rl == 8 ? 3 : 2), r = u & (rl - 1);
+      const int j = fdiv(row, args->by_tokens), t = row - j * T;
+      const int o = j * tt + t * tp;
+      float* cxr = CXR + cs * group * tt + o;
+      float* ss = SS + (cs * group + j) * tp + t;
+      if constexpr (KIND == 0) {
+        float m = -__int_as_float(0x7f800000);
+        for (int s = r; s < T; s += rl) m = fmaxf(m, G[o + s]);
+        for (int d = 1; d < rl; d <<= 1) m = fmaxf(m, __shfl_xor_sync(mask, m, d));
+        float sum = 0.f;
+        for (int s = r; s < T; s += rl) {
+          const float ex = expf(G[o + s] - m);
+          X0[o + s] = ex;
+          sum += ex;
         }
-      }
+        for (int d = 1; d < rl; d <<= 1) sum += __shfl_xor_sync(mask, sum, d);
+        const float rx = 1.f / sum;
+        for (int s = r; s < T; s += rl) {
+          W0[o + s] = X0[o + s] * rx;
+          cxr[s] = 0.f;
+        }
+        if (r == 0) R0[j * tp + t] = rx, *ss = 0.f;
+      } else {
+        // The NP planes in lockstep, each cross sum taking them in plane order.
+        const float rx = R0[j * tp + t], rx2 = rx * rx;
+        const float* sg = SG + cs * group * tt + o;
+        const auto expo = [&](int pl, int s) {
+          const float g = G[pl * group * tt + o + s];
+          return X0[o + s] * (KIND == 2 ? g + sg[s] : g);
+        };
+        float sum[NP], rp[NP];
 #pragma unroll
-      for (int j = 0; j < CHUNK; ++j) {
-        const int p = p0 + j;
-        if (p >= P) break;
-        float out = a[j];
-        if (p >= 1 && p <= C) {
-          out += g[j];
-          const int k = p - 1;
-          if (k < lap) {
-            sums[i] += cross[j];
-          } else {
-            sums[(1 + k - lap) * items + i] = cross[j];
+        for (int pl = 0; pl < NP; ++pl) sum[pl] = 0.f;
+        for (int s = r; s < T; s += rl) {
+#pragma unroll
+          for (int pl = 0; pl < NP; ++pl) sum[pl] += expo(pl, s);
+        }
+        for (int d = 1; d < rl; d <<= 1) {
+#pragma unroll
+          for (int pl = 0; pl < NP; ++pl) sum[pl] += __shfl_xor_sync(mask, sum[pl], d);
+        }
+#pragma unroll
+        for (int pl = 0; pl < NP; ++pl) {
+          rp[pl] = -sum[pl] * rx2;
+          if constexpr (KIND == 2) rp[pl] = fmaf(2.f * rx2 * rx, *ss, rp[pl]);
+        }
+        for (int s = r; s < T; s += rl) {
+#pragma unroll
+          for (int pl = 0; pl < NP; ++pl) {
+            const float x = expo(pl, s);
+            float wv = fmaf(x, rx, X0[o + s] * rp[pl]);
+            if constexpr (KIND == 1) {
+              cxr[s] = assign ? x * rp[pl] : fmaf(x, rp[pl], cxr[s]);
+            } else {
+              wv = fmaf(2.f, cxr[s], wv);
+            }
+            W[pl * group * tt + o + s] = wv;
           }
-        } else if (p > C) {
-          out += g[j] + 2.f * sums[(p == C + 1 ? 0 : p - C - 1) * items + i];
         }
-        attn[((static_cast<int64_t>(p) * batch + b) * T + t) * D + h * dh + f] = out;
+        if (KIND == 1 && r == 0) {
+#pragma unroll
+          for (int pl = 0; pl < NP; ++pl) *ss = assign ? sum[pl] * sum[pl] : fmaf(sum[pl], sum[pl], *ss);
+        }
       }
+    }
+  }
+
+  // O = W v0 + W0 v_p (the primal: W0 v0), plus 2 sum W_k v_k for a
+  // second-order plane; a tangent's W v_p into its slot, of NP planes at
+  // once (sharing the loads of v0 and W0).  A unit is RV query rows of one
+  // head and one 16-byte chunk of its features; W is read as float4 along the
+  // sources (zero past T, as are the rows of v).
+  template <int KIND, bool VEC, int RV, int NP>
+  __device__ __forceinline__ void values(const float* st0, const float* st1, int cs, bool assign,
+                                         float* out0, float* out1, int64_t D, bool store,
+                                         int tid) const {
+    const float* prim = sv_smem + prim_;
+    float *G = sv_smem + g_, *W = sv_smem + w_, *X0 = sv_smem + x0_, *W0 = sv_smem + w0_;
+    float *R0 = sv_smem + r0_, *CG = sv_smem + cg_, *SG = sv_smem + sg_, *CXR = sv_smem + cxr_;
+    float *SS = sv_smem + ss_, *CWV = sv_smem + cwv_;
+    const int tt = tp * tp, nch = dhp / 4, blocks = (T + RV - 1) / RV;
+    const int units = group * blocks * nch;
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 1
+    for (int u = tid; u < units; u += NC) {
+      const int q1 = fdiv(u, args->by_chunks);
+      const int j = fdiv(q1, RV == 4 ? args->by_blocks4 : args->by_blocks2);
+      const int f = 4 * (u - q1 * nch), t0 = RV * (q1 - j * blocks);
+      const int wo = j * tt + t0 * tp, vo = 2 * gw + j * dhp + f;
+      const float* v0 = (KIND == 0 ? st0 : prim) + vo;
+      float4 o[NP][RV], x[RV];
+#pragma unroll
+      for (int i = 0; i < RV; ++i) {
+        x[i] = zero;
+#pragma unroll
+        for (int pl = 0; pl < NP; ++pl) o[pl][i] = zero;
+      }
+      for (int s4 = 0; s4 < tp; s4 += 4) {
+        float4 w0[RV], wp[NP][RV];
+#pragma unroll
+        for (int i = 0; i < RV; ++i) {
+          w0[i] = load4(W0 + wo + i * tp + s4);
+#pragma unroll
+          for (int pl = 0; pl < NP; ++pl) {
+            if constexpr (KIND != 0) wp[pl][i] = load4(W + pl * group * tt + wo + i * tp + s4);
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int s = s4 + k;
+          const float4 vx = load4(v0 + s * ldr);
+          if constexpr (KIND == 0) {
+#pragma unroll
+            for (int i = 0; i < RV; ++i) axpy4(o[0][i], part(w0[i], k), vx);
+          } else {
+#pragma unroll
+            for (int pl = 0; pl < NP; ++pl) {
+              const float4 vy = load4((pl ? st1 : st0) + vo + s * ldr);
+#pragma unroll
+              for (int i = 0; i < RV; ++i) {
+                axpy4(o[pl][i], part(wp[pl][i], k), vx);
+                axpy4(o[pl][i], part(w0[i], k), vy);
+                if constexpr (KIND == 1) axpy4(x[i], part(wp[pl][i], k), vy);
+              }
+            }
+          }
+        }
+      }
+      float* cw = CWV + ((cs * group + j) * tp + t0) * dhp + f;
+#pragma unroll
+      for (int i = 0; i < RV; ++i) {
+        float* c = cw + i * dhp;
+        if constexpr (KIND == 0) {
+          put4(c, zero);
+        } else if constexpr (KIND == 1) {
+          if (!assign) {
+            const float4 c0 = load4(c);
+            x[i].x += c0.x, x[i].y += c0.y, x[i].z += c0.z, x[i].w += c0.w;
+          }
+          put4(c, x[i]);
+        } else {
+          axpy4(o[0][i], 2.f, load4(c));
+        }
+        if (store && t0 + i < T) {
+#pragma unroll
+          for (int pl = 0; pl < NP; ++pl) store4<VEC>((pl ? out1 : out0) + (t0 + i) * D + j * dh, f, dh, o[pl][i]);
+        }
+      }
+    }
+  }
+};
+
+// Persistent: block b takes a run of consecutive items of the batch * heads /
+// group (walker, group of heads) pairs and streams each item's planes through
+// the ring: the primal, the Laplacian tangents, the Laplacian, then each extra
+// tangent followed by its second derivative, so that two slots hold every
+// cross term.  qkv: [P, B, T, 3D] (q | k | v along the last axis); attn:
+// [P, B, T, D].  VEC: 16-byte aligned qkv and attn with dh % 4 == 0, whose
+// rows arrive by bulk copies (one of 3D floats a row where the group is every
+// head); otherwise the producer warp copies them float by float and the
+// outputs go out as floats.
+template <bool VEC, int PROBE, int NC>
+__global__ void __launch_bounds__(NC + 32, 1)
+    jet_softmax_values_streamed_kernel(const __grid_constant__ Args a) {
+  float* const smem = sv_smem;
+  const int T = a.tokens, D = a.feat, H = a.heads, C = a.c, E = a.e;
+  const int NG = a.group, S = a.stages;
+  const int dh = D / H, P = C + E + 2, lap = C - E;
+  const Layout L = layout(T, dh, NG, S);
+  const int ldr = static_cast<int>(L.ldr), gw = static_cast<int>(L.gw), dhp = static_cast<int>(L.dhp);
+  const int64_t batch = a.batch, groups = H / NG, items = batch * groups;
+  const int64_t row3 = 3 * static_cast<int64_t>(D);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.floats);  // [S]
+  uint64_t* empty = full + S;                                     // [S]
+  const int tid = threadIdx.x, lane = tid & 31;
+  // This block's items: a run of consecutive ones.
+  const int64_t per = items / gridDim.x, spare = items % gridDim.x;
+  const int64_t first = blockIdx.x * per + (blockIdx.x < spare ? blockIdx.x : spare);
+  const int64_t last = first + per + (blockIdx.x < spare);
+  // The plane of the o-th place in an item's order.
+  const auto plane_at = [&](int o) {
+    if (o <= lap) return o;
+    if (o == lap + 1) return C + 1;
+    const int q = (o - lap - 2) / 2;
+    return (o - lap - 2) % 2 == 0 ? 1 + lap + q : C + 2 + q;
+  };
+
+  for (int64_t i = tid; i < L.floats; i += NC + 32) smem[i] = 0.f;
+  if (tid == 0) {
+    for (int i = 0; i < S; ++i) {
+      bar_init(full + i, 1);
+      bar_init(empty + i, NC / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // The zeros land before any bulk copy writes the same stages.
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+
+  if (tid >= NC) {
+    // The producer: the n-th plane of this block goes to stage n % S once the
+    // computing warps have left the stage's previous round.
+    int64_t n = 0;
+    for (int64_t item = first; item < last; ++item) {
+      const int64_t b = item / groups;
+      const int h0 = static_cast<int>(item % groups) * NG;
+      for (int o = 0; o < P; ++o, ++n) {
+        const int slot = static_cast<int>(n % S);
+        const int64_t round = n / S;
+        if (round > 0) {
+          bar_wait(empty + slot, static_cast<uint32_t>((round - 1) & 1));
+          if constexpr (VEC) asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        }
+        float* dst = smem + L.ring + slot * L.stage;
+        const float* src = a.qkv + (static_cast<int64_t>(plane_at(o)) * batch + b) * T * row3 + h0 * dh;
+        if constexpr (VEC) {
+          if (lane == 0) bar_expect(full + slot, static_cast<uint32_t>(3 * T * NG * dh * 4));
+          __syncwarp();
+          if (NG == H) {  // q, k and v of every head: one piece a row
+            for (int t = lane; t < T; t += 32) bulk_load(dst + t * ldr, src + t * row3, 12 * D, full + slot);
+          } else {
+            for (int i = lane; i < 3 * T; i += 32) {
+              const int m = i / T, t = i % T;
+              bulk_load(dst + t * ldr + m * gw, src + t * row3 + m * D, 4 * NG * dh, full + slot);
+            }
+          }
+        } else {
+          for (int i = lane; i < 3 * T * NG * dh; i += 32) {
+            const int f = i % dh, j = i / dh % NG, t = i / (dh * NG) % T, m = i / (dh * NG * T);
+            dst[t * ldr + m * gw + j * dhp + f] = src[t * row3 + m * D + j * dh + f];
+          }
+          __threadfence_block();
+          __syncwarp();
+          if (lane == 0) bar_arrive(full + slot);
+        }
+      }
+    }
+    return;
+  }
+
+  float* prim = smem;
+  Planes<NC> w;
+  w.prim_ = 0;
+  w.g_ = static_cast<int>(L.g), w.w_ = static_cast<int>(L.w), w.x0_ = static_cast<int>(L.x0);
+  w.w0_ = static_cast<int>(L.w0), w.r0_ = static_cast<int>(L.r0), w.cg_ = static_cast<int>(L.cg);
+  w.sg_ = static_cast<int>(L.sg), w.cxr_ = static_cast<int>(L.cxr), w.ss_ = static_cast<int>(L.ss);
+  w.cwv_ = static_cast<int>(L.cwv);
+  w.T = T, w.tp = static_cast<int>(L.tp), w.ldr = ldr, w.gw = gw, w.dhp = dhp;
+  w.dh = dh, w.group = NG, w.row_lanes = a.row_lanes, w.args = &a;
+  // A probe without stores still computes: the batch is never negative.
+  const bool store = PROBE != kNoStore || batch < 0;
+  const bool wide = a.wide != 0;
+  // Two Laplacian tangents a step (there are 2N of them) where the ring holds
+  // them and a plane more; every other plane alone.
+  const bool pairs = S >= 3;
+  int64_t n = 0;
+  for (int64_t item = first; item < last; ++item) {
+    const int64_t b = item / groups;
+    const int h0 = static_cast<int>(item % groups) * NG;
+    // Every warp has left the previous item's primal and its softmax.
+    consumers_sync<NC>();
+    for (int o = 0; o < P;) {
+      const int p = plane_at(o);
+      const int np = pairs && p >= 1 && p < lap ? 2 : 1;
+      // The step's planes: p and, for a pair, p + 1 in the next stage.
+      const int round0 = fdiv(static_cast<int>(n), a.by_stages);
+      const int round1 = fdiv(static_cast<int>(n) + 1, a.by_stages);
+      const int slot0 = static_cast<int>(n) - round0 * S, slot1 = static_cast<int>(n) + 1 - round1 * S;
+      bar_wait(full + slot0, static_cast<uint32_t>(round0 & 1));
+      if (np == 2) bar_wait(full + slot1, static_cast<uint32_t>(round1 & 1));
+      const float* const st0 = smem + L.ring + slot0 * L.stage;
+      const float* const st1 = smem + L.ring + slot1 * L.stage;
+      float* const out0 = a.attn + (static_cast<int64_t>(p) * batch + b) * T * D + h0 * dh;
+      float* const out1 = out0 + batch * T * D;
+      if constexpr (PROBE == kNoMath) {
+        const int nch = dhp / 4;
+        for (int u = tid; u < np * T * NG * nch; u += NC) {
+          const int f = 4 * (u % nch), j = u / nch % NG, t = u / nch / NG % T, k = u / (nch * NG * T);
+          store4<VEC>((k ? out1 : out0) + t * static_cast<int64_t>(D) + j * dh, f, dh,
+                      load4((k ? st1 : st0) + t * ldr + 2 * gw + j * dhp + f));
+        }
+      } else if (np == 2) {
+        // A pair takes the 4x2 tiles and two-row value units at every T: the
+        // 4x4 tiles of two planes would not fit the registers.
+        w.template logits<1, 2, 2>(st0, st1, 0, false, tid);
+        consumers_sync<NC>();
+        w.template softmax<1, 2>(0, false, tid, lane);
+        consumers_sync<NC>();
+        w.template values<1, VEC, 2, 2>(st0, st1, 0, false, out0, out1, D, store, tid);
+      } else {
+        const int kind = p == 0 ? 0 : p <= C ? 1 : 2;
+        // A tangent's slot (0 Laplacian, 1 extra, set by an extra); a second-order plane's.
+        const int cs = kind == 1 ? p - 1 >= lap : p != C + 1;
+        const bool assign = kind == 1 && cs == 1;
+        if (kind == 0) {
+          for (int i = 4 * tid; i < L.stage; i += 4 * NC) put4(prim + i, load4(st0 + i));
+          if (wide) {
+            w.template logits<0, 4, 1>(st0, st0, 0, false, tid);
+          } else {
+            w.template logits<0, 2, 1>(st0, st0, 0, false, tid);
+          }
+          consumers_sync<NC>();
+          w.template softmax<0, 1>(0, false, tid, lane);
+          consumers_sync<NC>();
+          if (wide) {
+            w.template values<0, VEC, 4, 1>(st0, st0, 0, false, out0, out0, D, store, tid);
+          } else {
+            w.template values<0, VEC, 2, 1>(st0, st0, 0, false, out0, out0, D, store, tid);
+          }
+        } else if (kind == 1) {
+          if (wide) {
+            w.template logits<1, 4, 1>(st0, st0, cs, assign, tid);
+          } else {
+            w.template logits<1, 2, 1>(st0, st0, cs, assign, tid);
+          }
+          consumers_sync<NC>();
+          w.template softmax<1, 1>(cs, assign, tid, lane);
+          consumers_sync<NC>();
+          if (wide) {
+            w.template values<1, VEC, 4, 1>(st0, st0, cs, assign, out0, out0, D, store, tid);
+          } else {
+            w.template values<1, VEC, 2, 1>(st0, st0, cs, assign, out0, out0, D, store, tid);
+          }
+        } else {
+          if (wide) {
+            w.template logits<2, 4, 1>(st0, st0, cs, false, tid);
+          } else {
+            w.template logits<2, 2, 1>(st0, st0, cs, false, tid);
+          }
+          consumers_sync<NC>();
+          w.template softmax<2, 1>(cs, false, tid, lane);
+          consumers_sync<NC>();
+          if (wide) {
+            w.template values<2, VEC, 4, 1>(st0, st0, cs, false, out0, out0, D, store, tid);
+          } else {
+            w.template values<2, VEC, 2, 1>(st0, st0, cs, false, out0, out0, D, store, tid);
+          }
+        }
+      }
+      // This warp is done with the step's stages.
+      __syncwarp();
+      if (lane == 0) {
+        bar_arrive(empty + slot0);
+        if (np == 2) bar_arrive(empty + slot1);
+      }
+      n += np;
+      o += np;
     }
   }
 }
 
-}  // namespace sv_planes
+inline int device_attribute(cudaDeviceAttr what, int device) {
+  int value = 0;
+  return cudaDeviceGetAttribute(&value, what, device) == cudaSuccess ? value : 0;
+}
+
+// The most stages, at most kMaxStages, whose layout fits `budget` bytes (0: not one).
+inline int most_stages(int T, int dh, int group, int64_t budget) {
+  for (int s = kMaxStages; s >= 1; --s) {
+    if (layout(T, dh, group, s).bytes <= budget) return s;
+  }
+  return 0;
+}
+
+// Whether a plane's tiles are 4x4 and its value units four query rows (else
+// 4x2 and two): where T is a multiple of 4 from 12, so that no tile is padded
+// and a plane still has enough units for the block's threads.
+inline bool wide(int T) { return T % 4 == 0 && T >= 12; }
+
+// Units of the value contraction of one plane: four or two query rows of one
+// head and one 16-byte chunk of its features.
+inline int value_units(int T, int dh, int group) {
+  const int rows = wide(T) ? 4 : 2;
+  return group * ((T + rows - 1) / rows) * ((dh + 3) / 4);
+}
+
+// The computing threads for items of `group` heads: the fewest of kWidths
+// that take a plane's value units in one round, else the most.
+inline int width(int T, int dh, int group) {
+  for (const int w : kWidths) {
+    if (value_units(T, dh, group) <= w) return w;
+  }
+  return kWidths[1];
+}
+
+struct Plan {
+  int group, stages, threads;
+};
+
+// The heads of an item: the most (a divisor of `heads`) whose layout fits
+// two stages in `limit` bytes and whose value units one round of the widest
+// block takes, else the most that fit two stages, else one head; then as many
+// stages as fit (three or more put the Laplacian tangents in pairs) and the
+// threads for that group ({0, 0, 0}: not one stage fits).  `group` > 0 fixes
+// the heads.
+inline Plan plan(int T, int dh, int heads, int64_t limit, int group = 0) {
+  for (int pass = 0; pass < 2 && group == 0; ++pass) {
+    for (int g = heads; g > 1 && group == 0; --g) {
+      if (heads % g == 0 && most_stages(T, dh, g, limit) >= 2 &&
+          (pass == 1 || value_units(T, dh, g) <= kWidths[1])) {
+        group = g;
+      }
+    }
+  }
+  if (group == 0) group = 1;
+  const int stages = most_stages(T, dh, group, limit);
+  if (stages < 1) return {0, 0, 0};
+  return {group, stages, width(T, dh, group)};
+}
+
+// Each instantiation may use all of `limit` bytes of dynamic shared memory on
+// a device once the attribute is set there, which happens once.
+template <bool VEC, int PROBE, int NC>
+int launch(const Args& a, int device, int limit, cudaStream_t stream) {
+  static int allowed[kMaxDevices] = {};
+  const auto kernel = jet_softmax_values_streamed_kernel<VEC, PROBE, NC>;
+  if (allowed[device] != limit) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    allowed[device] = limit;
+  }
+  const size_t smem = static_cast<size_t>(layout(a.tokens, a.feat / a.heads, a.group, a.stages).bytes);
+  int fit = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, kernel, NC + 32, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (fit < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t blocks = static_cast<int64_t>(fit) * device_attribute(cudaDevAttrMultiProcessorCount, device);
+  const int64_t items = a.batch * (a.heads / a.group);
+  kernel<<<static_cast<unsigned>(items < blocks ? items : blocks), NC + 32, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int NC>
+int launch_probe(const Args& a, bool vec, int probe, int device, int limit, cudaStream_t stream) {
+  if (vec && probe == kWhole) return launch<true, kWhole, NC>(a, device, limit, stream);
+  if (vec && probe == kNoStore) return launch<true, kNoStore, NC>(a, device, limit, stream);
+  if (vec && probe == kNoMath) return launch<true, kNoMath, NC>(a, device, limit, stream);
+  if (probe == kWhole) return launch<false, kWhole, NC>(a, device, limit, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// group: heads of an item (a divisor of heads), 0 for the plan's; stages: the
+// ring's planes (1 to the most that fit), 0 for the most.  Probes other than
+// kWhole take only 16-byte aligned fields with dh % 4 == 0.
+int run(Args a, int planes, int probe, int group, int stages, void* stream) {
+  if (a.heads <= 0 || a.feat % a.heads != 0 || a.e < 1 || a.c < a.e || planes != a.c + a.e + 2 ||
+      a.batch <= 0 || a.tokens <= 0 || a.tokens > 1024 || planes > 4096 ||
+      a.batch * a.heads > 0x7fffffffll || group < 0 || stages < 0 ||
+      (group > 0 && a.heads % group != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int device = 0;
+  cudaGetDevice(&device);
+  if (device < 0 || device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  const int dh = a.feat / a.heads;
+  const int limit = device_attribute(cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  const Plan chosen = plan(a.tokens, dh, a.heads, limit, group);
+  if (chosen.stages < 1 || stages > chosen.stages) return static_cast<int>(cudaErrorInvalidValue);
+  a.group = chosen.group;
+  a.stages = stages > 0 ? stages : chosen.stages;
+  a.row_lanes = chosen.group * a.tokens * 8 <= chosen.threads ? 8 : 4;
+  a.wide = wide(a.tokens);
+  const int nch = (dh + 3) / 4;
+  a.by_tokens = fast_div(a.tokens);
+  a.by_rows = fast_div((a.tokens + 3) / 4);
+  a.by_cols2 = fast_div((a.tokens + 1) / 2);
+  a.by_cols4 = fast_div((a.tokens + 3) / 4);
+  a.by_chunks = fast_div(nch);
+  a.by_blocks2 = fast_div((a.tokens + 1) / 2);
+  a.by_blocks4 = fast_div((a.tokens + 3) / 4);
+  a.by_stages = fast_div(a.stages);
+  const bool vec = dh % 4 == 0 && aligned16(a.qkv) && aligned16(a.attn);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (chosen.threads == kWidths[0]) return launch_probe<kWidths[0]>(a, vec, probe, device, limit, s);
+  return launch_probe<kWidths[1]>(a, vec, probe, device, limit, s);
+}
+
+}  // namespace sv_streamed
 
 // ---- jet_softmax_values at compile-time shapes ---------------------------------
 
@@ -697,7 +1253,7 @@ __device__ __forceinline__ int row_chunk(int p, int t, int c) {
   return (p * T + t) * DH + ((c ^ ((p & 3) << 2)) << 2);
 }
 
-// Same function and layouts as jet_softmax_values_planes_kernel.  Persistent: block b
+// Same function and layouts as jet_softmax_values_streamed_kernel.  Persistent: block b
 // takes items b, b + gridDim.x, ... of the batch * H (walker, head) pairs.
 template <int T, int DH, int C, int E>
 __global__ void __launch_bounds__(THREADS, 1) jet_softmax_values_tiled_kernel(
@@ -1000,31 +1556,51 @@ extern "C" int jet_gemm_tf32x3(const float* a, const float* whi, const float* wl
 }
 
 // Logits, softmax and value-contraction jets of every (walker, head), at any
-// shape whose planes layout fits the card's shared memory (the caller checks
-// first: ops/jet_attention.py:check_softmax_values_shape).
+// shape whose streamed layout fits the card's shared memory with one stage
+// (the caller checks first: ops/jet_attention.py:check_softmax_values_shape).
 // qkv: [planes, batch, tokens, 3 * feat]; attn: [planes, batch, tokens, feat].
 extern "C" int jet_softmax_values_f32(const float* qkv, float* attn, int planes,
                                       int64_t batch, int tokens, int feat, int heads,
                                       int c, int e, void* stream) {
-  if (heads <= 0 || feat % heads != 0 || e < 1 || c < e || planes != c + e + 2 ||
-      batch <= 0 || tokens <= 0 || tokens > 1024 || planes > 1024 ||
-      batch * heads > 0x7fffffff) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  const sv_streamed::Args a{qkv, attn, batch, tokens, feat, heads, c, e, 0, 0, 0, 0, {}, {}, {}, {}, {}, {}, {}, {}};
+  return sv_streamed::run(a, planes, sv_streamed::kWhole, 0, 0, stream);
+}
+
+// The streamed kernel cut down, or with another ring or head group, for
+// timing and tests only (scripts/torch_softmax_values_timing.py).  probe: 0
+// the kernel, 1 without its stores, 2 without its arithmetic (each plane's v
+// copied out); 1 and 2 take only 16-byte aligned fields with head width
+// % 4 == 0.  group: heads of an item (a divisor of heads), 0 for the
+// default; stages: the ring's planes (1 to the most that fit), 0 for the most.
+extern "C" int jet_softmax_values_streamed_probe_f32(const float* qkv, float* attn, int planes,
+                                                     int64_t batch, int tokens, int feat,
+                                                     int heads, int c, int e, int probe,
+                                                     int group, int stages, void* stream) {
+  const sv_streamed::Args a{qkv, attn, batch, tokens, feat, heads, c, e, 0, 0, 0, 0, {}, {}, {}, {}, {}, {}, {}, {}};
+  return sv_streamed::run(a, planes, probe, group, stages, stream);
+}
+
+// The streamed kernel's plan on `device` for this shape: what = 0 the heads
+// of an item, 1 the stages of its ring, 2 its computing threads; 0 where not
+// one stage fits.
+extern "C" int jet_softmax_values_streamed_plan(int device, int tokens, int feat, int heads,
+                                                int what) {
+  if (device < 0 || device >= sv_streamed::kMaxDevices || tokens <= 0 || heads <= 0 ||
+      feat % heads != 0) {
+    return 0;
   }
-  const size_t smem = sizeof(float) * sv_planes::layout(planes, tokens, feat / heads, e).total;
-  int device = 0, limit = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (smem > static_cast<size_t>(limit)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(sv_planes::jet_softmax_values_planes_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  sv_planes::jet_softmax_values_planes_kernel<<<static_cast<unsigned>(batch * heads),
-                                             sv_planes::THREADS, smem,
-                                             static_cast<cudaStream_t>(stream)>>>(
-      qkv, attn, planes, batch, tokens, feat, heads, c, e);
-  return static_cast<int>(cudaGetLastError());
+  const sv_streamed::Plan chosen = sv_streamed::plan(
+      tokens, feat / heads, heads,
+      sv_streamed::device_attribute(cudaDevAttrMaxSharedMemoryPerBlockOptin, device));
+  return what == 0 ? chosen.group : what == 1 ? chosen.stages : chosen.threads;
+}
+
+// Bytes of the streamed kernel's shared memory with `group` heads an item and
+// `stages` planes in the ring (ops/jet_attention.py:softmax_values_smem
+// computes the same), at most 2^31 - 1.
+extern "C" int jet_softmax_values_streamed_smem(int tokens, int head_dim, int group, int stages) {
+  const int64_t bytes = sv_streamed::layout(tokens, head_dim, group, stages).bytes;
+  return bytes < 0x7fffffffll ? static_cast<int>(bytes) : 0x7fffffff;
 }
 
 // The same function at the shapes compiled in: tokens 6, head width 64 and

@@ -9,7 +9,8 @@ launches of two hand-written kernels from ``csrc/jet_attention.cu``:
 1. :func:`jet_gemm` of the stacked planes ``[P*B*T, D]`` with ``[wq | wk | wv]``
    (1/sqrt(dh) folded into ``wq`` and ``bq``), bias on the primal rows only;
 2. :func:`softmax_values`: logits, softmax and value-contraction jets of every
-   (walker, head), that head's q/k/v planes in shared memory;
+   (walker, head), the planes of a walker's group of heads streamed once
+   through shared memory;
 3. :func:`jet_gemm` with ``wo``, bias on the primal rows only.
 
 The projections are bound by operations.  The local energy needs float32
@@ -18,15 +19,18 @@ as three TF32 products of operands split into ``hi = tf32(x)`` and
 ``lo = tf32(x - hi)``: ``lo*hi + hi*lo + hi*hi``, summed in float32.  The bound
 is ``3 * 2MNK`` at the TF32 rate.  The weights are constant during inference,
 so :func:`prepare_weights` splits and transposes them once and caches the
-result; the kernel splits only the activations.  The core is bound by bytes.
-PyTorch's TF32 switch is not involved and stays off.
+result; the kernel splits only the activations.  The core's bound is bytes;
+beyond T = 6 it runs at a bit under half of it (``PERF.md``), held by the
+instruction throughput of its products.  PyTorch's TF32 switch is not
+involved and stays off.
 
 Each wrapper picks between two hand-written kernels by shape, before the
 launch: the tensor-core GEMM takes ``K % 32 == 0`` and ``N % 128 == 0``, the
-tiled core ``T = 6``, ``dh = 64`` and ``(C, E)`` in ``(15, 3)``, ``(13, 1)``;
-the generic GEMM and the plane-streaming core take the rest, the latter up to
-the shared memory of one block (:func:`check_softmax_values_shape`: T <= 25
-tokens at ``dh = 64`` in both jet modes).  A jet whose four fields are adjacent views
+tiled core ``T = 6``, ``dh = 64`` and ``(C, E)`` in ``(15, 3)``, ``(13, 1)``
+(:func:`softmax_values_route`); the generic GEMM and the streamed core take
+the rest, the latter up to the shared memory of one block
+(:func:`check_softmax_values_shape`: T <= 48 tokens at ``dh = 64`` in both
+jet modes).  A jet whose four fields are adjacent views
 of one ``[P, B, T, D]`` buffer (what the kernels return) is read with no copy;
 any other jet is stacked once.
 
@@ -54,6 +58,7 @@ _GEMM_TAIL = (ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int64, _PTR)
 _GEMM_ARGTYPES = (_PTR,) * 4 + _GEMM_TAIL
 _GEMM_TC_ARGTYPES = (_PTR,) * 5 + _GEMM_TAIL
 _SV_ARGTYPES = (_PTR, _PTR, ctypes.c_int, ctypes.c_int64) + (ctypes.c_int,) * 5 + (_PTR,)
+_SV_PROBE_ARGTYPES = _SV_ARGTYPES[:-1] + (ctypes.c_int,) * 3 + (_PTR,)
 
 
 # --- the projections ------------------------------------------------------------
@@ -175,39 +180,79 @@ def softmax_values_plain(qkv, batch: int, tokens: int, heads: int, c: int, e: in
     ).reshape(planes * batch * tokens, feat)
 
 
-# Shared memory one block may have on an H100 (opt-in), and the planes the
-# plane-streaming kernel holds at once (``csrc/jet_attention.cu:sv_planes``).
+# Shared memory one block may have on an H100 (opt-in), and the most planes
+# the streamed kernel's ring holds (``csrc/jet_attention.cu:sv_streamed``).
 SV_SMEM_LIMIT = 232_448
-SV_CHUNK = 4
+SV_MAX_STAGES = 4
 
 
-def softmax_values_smem(planes: int, tokens: int, head_dim: int, e: int) -> int:
-    """Bytes of shared memory of the plane-streaming kernel (``sv_planes::layout``):
-    the primal q, k, v and a chunk of q and k planes as ``[T][dh + 1]`` each,
-    the chunk of k or the value pass's ``[1 + E][T][dh]`` cross sums, the
-    ``[P][T][T]`` jet and the ``[P][T]`` sums and reciprocals, the row maxima."""
-    row = tokens * (head_dim + 1)
-    chunk = SV_CHUNK * row
-    sums = (1 + e) * tokens * head_dim
-    planes_jet = planes * tokens * tokens
-    return 4 * (3 * row + chunk + max(chunk, sums) + planes_jet + 2 * planes * tokens + tokens)
+def softmax_values_smem(tokens: int, head_dim: int, group: int = 1, stages: int = 1) -> int:
+    """Bytes of shared memory of the streamed kernel (``sv_streamed::layout``)
+    for items of ``group`` heads and a ring of ``stages`` planes.  A plane is
+    ``tp`` rows (T rounded up to 4) of the group's ``[q | k | v]``, each head
+    ``dhp`` floats (dh rounded up to 4), at a row stride of 4 (mod 8) floats:
+    the primal's copy and the ring.  Per head: the logits and the weights of
+    two planes and the primal's exponential and weights ``[tp][tp]``, its
+    reciprocal ``[tp]``; two slots of cross terms, each ``3 [tp][tp] + [tp]
+    + [tp][dhp]``; two mbarriers a stage.  It grows with neither the planes
+    nor E."""
+    tp = -(-tokens // 4) * 4
+    dhp = -(-head_dim // 4) * 4
+    ldr = 3 * group * dhp
+    ldr += 4 if ldr % 8 == 0 else 0
+    floats = ((1 + stages) * tp * ldr + group * (6 * tp * tp + tp)
+              + 2 * group * (3 * tp * tp + tp + tp * dhp))
+    return 4 * floats + 16 * stages
 
 
 def check_softmax_values_shape(tokens: int, feat: int, heads: int, c: int, e: int) -> None:
     """Raise ``ValueError`` for a shape that no softmax/values kernel takes.
 
-    The plane-streaming kernel takes any ``1 <= E <= C`` and any head width
-    whose layout fits ``SV_SMEM_LIMIT``; the limit grows as ``P T^2 + T dh``
-    (91,904 bytes at N = 16 with L^2, T = 16, P = 40, dh = 64).
+    The streamed kernel takes any ``1 <= E <= C`` and any head width whose
+    layout with one head an item and one stage fits ``SV_SMEM_LIMIT``; that
+    grows as ``T dh + T^2``, not with the planes or E (45,776 bytes at N = 16,
+    T = 16, dh = 64).
     """
     if heads <= 0 or feat % heads or not 1 <= e <= c or tokens <= 0:
         raise ValueError(f"unsupported attention shape: D={feat}, H={heads}, C={c}, E={e}, T={tokens}")
-    need = softmax_values_smem(c + e + 2, tokens, feat // heads, e)
+    need = softmax_values_smem(tokens, feat // heads)
     if need > SV_SMEM_LIMIT:
         raise ValueError(
             f"jet_softmax_values: T={tokens}, dh={feat // heads}, (C, E)=({c}, {e}) need {need} "
             f"bytes of shared memory, past SV_SMEM_LIMIT = {SV_SMEM_LIMIT}"
         )
+
+
+# (T, dh, C, E) compiled into the tiled kernel: N=6 production, with L^2 and without.
+TILED_SHAPES = ((6, 64, 15, 3), (6, 64, 13, 1))
+
+
+def softmax_values_route(tokens: int, head_dim: int, c: int, e: int, aligned: bool) -> str:
+    """The kernel that takes a shape on the card: ``"tiled"`` for ``TILED_SHAPES``
+    with 16-byte aligned ``qkv`` and output, else ``"streamed"`` (which copies
+    fields off the 16-byte grid, or with ``dh % 4 != 0``, float by float)."""
+    return "tiled" if (tokens, head_dim, c, e) in TILED_SHAPES and aligned else "streamed"
+
+
+def streamed_plan(device, tokens: int, feat: int, heads: int) -> tuple[int, int, int]:
+    """``(heads of an item, stages of the ring, computing threads)`` of the
+    streamed kernel's launch on ``device``: the most heads (a divisor of H)
+    whose layout fits two stages and whose value units one round of 320
+    threads takes, else the most heads that fit two stages, else one head;
+    then as many stages as fit (at most ``SV_MAX_STAGES``; three or more put
+    the Laplacian tangents two a step) and the fewer of 256 and 320 threads
+    that take the value units in one round; ``(0, 0, 0)`` where not one
+    stage fits."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    fn = function("jet_attention", "jet_softmax_values_streamed_plan", (ctypes.c_int,) * 5)
+    return tuple(fn(index, tokens, feat, heads, what) for what in range(3))
+
+
+def streamed_smem_on_card(tokens: int, head_dim: int, group: int, stages: int) -> int:
+    """:func:`softmax_values_smem` as the library computes it."""
+    fn = function("jet_attention", "jet_softmax_values_streamed_smem", (ctypes.c_int,) * 4)
+    return fn(tokens, head_dim, group, stages)
 
 
 def softmax_values(qkv: torch.Tensor, batch: int, tokens: int, heads: int, c: int, e: int):
@@ -222,8 +267,8 @@ def softmax_values(qkv: torch.Tensor, batch: int, tokens: int, heads: int, c: in
     Returns:
         ``[P*B*T, D]`` attention outputs per plane, heads concatenated.
 
-    The shapes in ``TILED_SHAPES`` go to the tiled kernel, others to the
-    plane-streaming one; a shape neither takes raises before the launch.
+    :func:`softmax_values_route` names the kernel; a shape that neither takes
+    raises before the launch.
     """
     if qkv.device.type == "cpu":
         return softmax_values_plain(qkv, batch, tokens, heads, c, e)
@@ -232,7 +277,7 @@ def softmax_values(qkv: torch.Tensor, batch: int, tokens: int, heads: int, c: in
     require(qkv, qkv.device, (planes * batch * tokens, 3 * feat), "qkv")
     check_softmax_values_shape(tokens, feat, heads, c, e)
     out = torch.empty((planes * batch * tokens, feat), dtype=torch.float32, device=qkv.device)
-    tiled = (tokens, feat // heads, c, e) in TILED_SHAPES and _aligned(qkv, out)
+    tiled = softmax_values_route(tokens, feat // heads, c, e, _aligned(qkv, out)) == "tiled"
     symbol = "jet_softmax_values_tiled_f32" if tiled else "jet_softmax_values_f32"
     status = function("jet_attention", symbol, _SV_ARGTYPES)(
         qkv.data_ptr(), out.data_ptr(), planes, batch, tokens, feat, heads, c, e,
@@ -244,10 +289,30 @@ def softmax_values(qkv: torch.Tensor, batch: int, tokens: int, heads: int, c: in
     return out
 
 
-# (T, dh, C, E) compiled into the tiled kernel: N=6 production, with L^2 and without.
-TILED_SHAPES = ((6, 64, 15, 3), (6, 64, 13, 1))
 softmax_values.launches = 0
 softmax_values.launches_tiled = 0
+
+STREAMED_PROBES = {"whole": 0, "no_store": 1, "no_math": 2}
+
+
+def softmax_values_probe(qkv: torch.Tensor, batch: int, tokens: int, heads: int, c: int, e: int,
+                         probe: str = "whole", group: int = 0, stages: int = 0):
+    """The streamed kernel on the card as :func:`softmax_values` launches it, or
+    cut down (``probe``: ``no_store`` leaves out the stores, ``no_math`` copies
+    each plane's v out with no arithmetic), with items of ``group`` heads and a
+    ring of ``stages`` planes (0: the library's choice).  For timing and tests;
+    launches are not counted."""
+    planes = c + e + 2
+    feat = qkv.shape[-1] // 3
+    require(qkv, qkv.device, (planes * batch * tokens, 3 * feat), "qkv")
+    check_softmax_values_shape(tokens, feat, heads, c, e)
+    out = torch.empty((planes * batch * tokens, feat), dtype=torch.float32, device=qkv.device)
+    status = function("jet_attention", "jet_softmax_values_streamed_probe_f32", _SV_PROBE_ARGTYPES)(
+        qkv.data_ptr(), out.data_ptr(), planes, batch, tokens, feat, heads, c, e,
+        STREAMED_PROBES[probe], group, stages, stream(qkv.device),
+    )
+    check(status, "jet_softmax_values_streamed_probe")
+    return out
 
 
 # --- the whole attention ------------------------------------------------------------

@@ -7,13 +7,18 @@
 For each shape ``(N, C, E)`` (T = N tokens, D = 256, 4 heads of 64) it makes
 random ``qkv`` planes and prints one JSON line: the wrapper
 ``ops/jet_attention.py:softmax_values`` (the tiled kernel at T = 6, the
-plane-streaming kernel elsewhere) and its plain version, their CUDA-event
-medians, the largest error relative to the plain output's largest value, and
-the bound of ``attention_work`` as ``chip_smoke.py`` takes it.  With
-``--other-source`` the ``jet_softmax_values_f32`` entry point of that source
-(an older commit unpacked with ``git archive``) is built by ``nvcc`` beside
-this checkout's kernels and timed on the same inputs, or reported as refused
-with its CUDA error.  The card's name and power limit close the output.
+streamed kernel elsewhere, with the heads of an item and the stages of the
+ring the library chose) and its plain version, their CUDA-event medians, the
+largest error relative to the plain output's largest value, and the bound of
+``attention_work`` as ``chip_smoke.py`` takes it.  At N = 10 in both modes it
+also times the streamed kernel's parts (``softmax_values_probe``): without
+its stores, without its arithmetic, and at every head group and stage count
+that fits.  With ``--other-source`` the ``jet_softmax_values_f32`` entry point
+of that source (an older commit unpacked with ``git archive``) is built by
+``nvcc`` beside this checkout's kernels and timed on the same inputs in turns
+with this checkout's kernel (this, other, other, this), or reported as
+refused with its CUDA error.  The card's name and power limit close the
+output.
 """
 
 from __future__ import annotations
@@ -54,6 +59,22 @@ def other_kernel(source: Path):
     return fn
 
 
+def parts(ja, qkv, batch: int, n: int, c: int, e: int, reps: int) -> dict:
+    """The streamed kernel whole, without its stores and without its arithmetic,
+    then whole at every head group (a divisor of the heads) and stage count
+    that fits one block, in ms."""
+    def probe(name, group=0, stages=0):
+        return chip_smoke.cuda_ms(
+            lambda: ja.softmax_values_probe(qkv, batch, n, HEADS, c, e, name, group, stages), reps=reps)
+
+    out = {name: probe(name) for name in ja.STREAMED_PROBES}
+    for group in (g for g in range(1, HEADS + 1) if HEADS % g == 0):
+        for stages in range(1, ja.SV_MAX_STAGES + 1):
+            if ja.softmax_values_smem(n, FEAT // HEADS, group, stages) <= ja.SV_SMEM_LIMIT:
+                out[f"group{group}_stages{stages}"] = probe("whole", group, stages)
+    return out
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--batch", type=int, default=3360, help="walkers (default: 3360)")
@@ -86,16 +107,22 @@ def main(argv: list[str] | None = None) -> int:
         nbytes, core, _ = ja.attention_work(batch, n, FEAT, HEADS, c, e)
         elems = planes * batch * n * FEAT
         bound_ms, bound_by = chip_smoke.bound(4 * elems * 4, core, rates)
+        routed = lambda: ja.softmax_values(qkv, batch, n, HEADS, c, e)  # noqa: E731
         row = dict(
             n=n, c=c, e=e, batch=batch, tiled=ja.softmax_values.launches_tiled > tiled_before,
             max_rel_err=(got - want).abs().max().item() / scale,
-            ms=chip_smoke.cuda_ms(lambda: ja.softmax_values(qkv, batch, n, HEADS, c, e), reps=args.reps),
+            ms=chip_smoke.cuda_ms(routed, reps=args.reps),
             plain_ms=chip_smoke.cuda_ms(
                 lambda: ja.softmax_values_plain(qkv, batch, n, HEADS, c, e), reps=3),
             bound_ms=bound_ms, bound_by=bound_by,
-            smem_bytes=ja.softmax_values_smem(planes, n, FEAT // HEADS, e),
         )
         del want, got
+        if not row["tiled"]:
+            group, stages, threads = ja.streamed_plan(device, n, FEAT, HEADS)
+            row.update(group=group, stages=stages, threads=threads,
+                       smem_bytes=ja.softmax_values_smem(n, FEAT // HEADS, group, stages))
+        if n == 10:
+            row["parts_ms"] = parts(ja, qkv, batch, n, c, e, args.reps)
         if other is not None:
             out = torch.empty(planes * batch * n, FEAT, device=device)
 
@@ -111,7 +138,8 @@ def main(argv: list[str] | None = None) -> int:
                 want = ja.softmax_values_plain(qkv, batch, n, HEADS, c, e)
                 row["other_max_rel_err"] = (out - want).abs().max().item() / want.abs().max().item()
                 del want
-                row["other_ms"] = chip_smoke.cuda_ms(call, reps=args.reps)
+                turns = [chip_smoke.cuda_ms(f, reps=args.reps) for f in (routed, call, call, routed)]
+                row.update(turns_ms=turns, ms=(turns[0] + turns[3]) / 2, other_ms=(turns[1] + turns[2]) / 2)
         print(json.dumps(row), flush=True)
         del qkv
         torch.cuda.empty_cache()

@@ -27,7 +27,8 @@ from deephall_tpu_torch.ops import fwdlap, jet_attention, jet_layernorm
 
 torch.set_num_threads(2)
 
-SHAPES = [(13, 1, 6), (15, 3, 6), (17, 1, 8)]  # (C, E, T): lean, L^2, N=8 lean
+# (C, E, T): lean, L^2, N=8 lean, N=10 with L^2 (the extras' cross terms at T != 6)
+SHAPES = [(13, 1, 6), (15, 3, 6), (17, 1, 8), (23, 3, 10)]
 FEAT, HEADS, BATCH = 32, 4, 8
 
 

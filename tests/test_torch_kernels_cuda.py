@@ -287,27 +287,108 @@ def test_gemm_kernels(device, m, k, n, tensor_cores):
     assert (generic - want).abs().max().item() <= TOL * want.abs().max().item()
 
 
-# The tiled kernel takes T = 6 at the production modes, the plane-streaming
-# kernel the rest: N = 8 to 16 in both modes among them.
+# The tiled kernel takes T = 6 at the production modes, the streamed kernel
+# the rest: N = 8 to 25 in both modes among them, 37 walkers (no multiple of
+# the grid) and the whole batch of 3360 at N = 10.
 @pytest.mark.parametrize("c,e,t,dh,heads,batch,tiled", [
     (15, 3, 6, 64, 4, 3, True), (13, 1, 6, 64, 4, 301, True), (15, 3, 6, 64, 2, 150, True),
     (17, 1, 8, 16, 4, 33, False), (13, 1, 6, 32, 4, 33, False), (14, 2, 6, 64, 4, 33, False),
     (19, 3, 8, 64, 4, 33, False), (21, 1, 10, 64, 4, 33, False), (23, 3, 10, 64, 4, 33, False),
     (25, 1, 12, 64, 4, 33, False), (27, 3, 12, 64, 4, 33, False), (35, 3, 16, 64, 4, 33, False),
-    (2, 2, 3, 8, 2, 5, False),
+    (2, 2, 3, 8, 2, 5, False), (17, 1, 8, 64, 4, 33, False), (45, 3, 21, 64, 4, 33, False),
+    (53, 3, 25, 64, 4, 9, False), (51, 1, 25, 64, 4, 9, False), (23, 3, 10, 64, 4, 37, False),
+    (21, 1, 10, 64, 4, 3360, False), (5, 1, 5, 6, 2, 9, False),
 ])
 def test_softmax_values_kernels(device, c, e, t, dh, heads, batch, tiled):
     gen = torch.Generator(device=device).manual_seed(c + batch)
     qkv = torch.randn((c + e + 2) * batch * t, 3 * heads * dh, generator=gen, device=device)
+    assert jet_attention.softmax_values_route(t, dh, c, e, True) == ("tiled" if tiled else "streamed")
     fn = jet_attention.softmax_values
     before = fn.launches, fn.launches_tiled
     got = fn(qkv, batch, t, heads, c, e)
     torch.cuda.synchronize()
     assert (fn.launches, fn.launches_tiled) == (before[0] + 1, before[1] + tiled)
+    assert_softmax_values_close(got, qkv, batch, t, heads, c, e)
+
+
+def assert_softmax_values_close(got, qkv, batch, t, heads, c, e):
+    """``got`` within TOL of the plain version in float64, plane by plane."""
     want = jet_attention.softmax_values_plain(qkv.double(), batch, t, heads, c, e)
     planes = c + e + 2
     err = (got.reshape(planes, -1) - want.reshape(planes, -1)).abs().amax(1)
     assert (err <= TOL * want.reshape(planes, -1).abs().amax(1)).all()
+
+
+# A view off the 16-byte grid goes to the streamed kernel, which copies it
+# float by float: at N = 10 and at a shape the tiled kernel takes aligned.
+@pytest.mark.parametrize("c,e,t", [(23, 3, 10), (15, 3, 6)])
+def test_softmax_values_unaligned_view(device, c, e, t):
+    gen = torch.Generator(device=device).manual_seed(c)
+    batch, heads, feat = 37, 4, 256
+    rows = (c + e + 2) * batch * t
+    qkv = torch.randn(rows * 3 * feat + 1, generator=gen, device=device)[1:].view(rows, 3 * feat)
+    assert jet_attention.softmax_values_route(t, feat // heads, c, e, False) == "streamed"
+    fn = jet_attention.softmax_values
+    before = fn.launches, fn.launches_tiled
+    got = fn(qkv, batch, t, heads, c, e)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.launches_tiled) == (before[0] + 1, before[1])
+    assert_softmax_values_close(got, qkv, batch, t, heads, c, e)
+
+
+# Every head group and ring length the kernel can run, from one stage to the
+# most that fit one block (with three stages or more the Laplacian tangents go
+# two a step), at N = 10 with L^2 and at N = 12 and 16 (4x4 tiles), and the
+# library's layout against the wrapper's count.
+@pytest.mark.parametrize("c,e,t", [(23, 3, 10), (25, 1, 12), (35, 3, 16)])
+def test_streamed_kernel_every_ring(device, c, e, t):
+    gen = torch.Generator(device=device).manual_seed(7 * t)
+    batch, heads, dh = 37, 4, 64
+    qkv = torch.randn((c + e + 2) * batch * t, 3 * heads * dh, generator=gen, device=device)
+    limit = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+    for group in (1, 2, 4):
+        for stages in range(1, jet_attention.SV_MAX_STAGES + 1):
+            nbytes = jet_attention.softmax_values_smem(t, dh, group, stages)
+            assert jet_attention.streamed_smem_on_card(t, dh, group, stages) == nbytes
+            if nbytes > limit:
+                with pytest.raises(RuntimeError, match="CUDA error"):
+                    jet_attention.softmax_values_probe(qkv, batch, t, heads, c, e, group=group,
+                                                       stages=stages)
+                continue
+            got = jet_attention.softmax_values_probe(qkv, batch, t, heads, c, e, group=group,
+                                                     stages=stages)
+            torch.cuda.synchronize()
+            assert_softmax_values_close(got, qkv, batch, t, heads, c, e)
+
+
+# The library's plan on an H100 (232,448 bytes of shared memory a block):
+# (heads of an item, stages of the ring, computing threads).
+@pytest.mark.parametrize("t,plan", [
+    (6, (4, 4, 256)), (8, (4, 4, 256)), (10, (4, 3, 320)), (12, (4, 3, 256)), (16, (4, 2, 256)),
+    (17, (2, 4, 320)), (21, (2, 3, 320)), (25, (1, 4, 256)), (48, (1, 1, 256)), (49, (0, 0, 0)),
+])
+def test_streamed_plan_on_the_card(device, t, plan):
+    if torch.cuda.get_device_properties(device).shared_memory_per_block_optin != 232_448:
+        pytest.skip("the plans are stated for an H100")
+    assert jet_attention.streamed_plan(device, t, 256, 4) == plan
+
+
+def test_streamed_kernel_probes(device):
+    """The probes launch: without arithmetic each plane's v is copied out, head
+    by head, single planes and pairs alike; the whole kernel through the
+    probe entry point matches the plain version."""
+    gen = torch.Generator(device=device).manual_seed(3)
+    c, e, t, batch, heads, dh = 21, 1, 10, 37, 4, 64
+    planes = c + e + 2
+    qkv = torch.randn(planes * batch * t, 3 * heads * dh, generator=gen, device=device)
+    copied = jet_attention.softmax_values_probe(qkv, batch, t, heads, c, e, "no_math")
+    torch.cuda.synchronize()
+    assert torch.equal(copied, qkv[:, 2 * heads * dh:])
+    quiet = jet_attention.softmax_values_probe(qkv, batch, t, heads, c, e, "no_store")
+    whole = jet_attention.softmax_values_probe(qkv, batch, t, heads, c, e)
+    torch.cuda.synchronize()
+    assert_softmax_values_close(whole, qkv, batch, t, heads, c, e)
+    assert quiet.shape == whole.shape
 
 
 def test_kernels_refuse_what_they_do_not_take(device):
@@ -323,13 +404,13 @@ def test_kernels_refuse_what_they_do_not_take(device):
     a = torch.randn(8, 16, device=device).t()  # not contiguous
     with pytest.raises(ValueError):
         jet_attention.jet_gemm(a, torch.randn(8, 4, device=device), torch.zeros(4, device=device), 2)
-    # N = 30 with L^2: past the softmax/values kernel's shared memory, and C = 65
+    # N = 49 with L^2: past the softmax/values kernel's shared memory, and C = 65
     # past the LayerNorm's register capacity; both raise before any launch.
     fn = jet_attention.softmax_values
     before = fn.launches
-    qkv = torch.zeros(68 * 2 * 30, 3 * 256, device=device)
+    qkv = torch.zeros(106 * 2 * 49, 3 * 256, device=device)
     with pytest.raises(ValueError, match="SV_SMEM_LIMIT"):
-        fn(qkv, 2, 30, 4, 63, 3)
+        fn(qkv, 2, 49, 4, 101, 3)
     assert fn.launches == before
     wide = random_jet(gen, device, 2, 3, 64, 65, 3)
     with pytest.raises(ValueError, match="MAX_TANGENTS"):

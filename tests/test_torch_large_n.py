@@ -121,10 +121,10 @@ def test_kernel_limits_take_every_system_up_to_16(compute_l2):
         c, e = jet_shape(nelec, compute_l2)
         jet_attention.check_softmax_values_shape(nelec, feat, heads, c, e)
         jet_layernorm.check_shape(feat, c, e)
-        need = jet_attention.softmax_values_smem(c + e + 2, nelec, feat // heads, e)
+        need = jet_attention.softmax_values_smem(nelec, feat // heads)
         assert need <= jet_attention.SV_SMEM_LIMIT
-    # N = 16 with L^2: P = 40, T = 16, dh = 64 (the figure the kernel's note gives).
-    assert jet_attention.softmax_values_smem(40, 16, 64, 3) == 91_904
+    # N = 16: T = 16, dh = 64, one head an item, one stage (the figure the wrapper's note gives).
+    assert jet_attention.softmax_values_smem(16, 64) == 45_776
 
 
 @pytest.mark.parametrize("compute_l2", [True, False])
@@ -148,14 +148,15 @@ def test_staged_layernorm_takes_every_system_up_to_16(compute_l2):
 
 def test_kernel_limits_name_what_they_refuse():
     feat, heads = 256, 4
-    c, e = jet_shape(30, True)  # 347,040 bytes of shared memory
+    c, e = jet_shape(49, True)  # 238,592 bytes of shared memory with one head and one stage
     with pytest.raises(ValueError, match="SV_SMEM_LIMIT"):
-        jet_attention.check_softmax_values_shape(30, feat, heads, c, e)
-    # The largest N the softmax/values kernel takes at dh = 64 is 25 in both modes.
+        jet_attention.check_softmax_values_shape(49, feat, heads, c, e)
+    # The largest N the softmax/values kernel takes at dh = 64 is 48 in both
+    # modes (its shared memory grows as T dh + T^2, with neither C nor E).
     for compute_l2 in (True, False):
-        jet_attention.check_softmax_values_shape(25, feat, heads, *jet_shape(25, compute_l2))
+        jet_attention.check_softmax_values_shape(48, feat, heads, *jet_shape(48, compute_l2))
         with pytest.raises(ValueError, match="SV_SMEM_LIMIT"):
-            jet_attention.check_softmax_values_shape(26, feat, heads, *jet_shape(26, compute_l2))
+            jet_attention.check_softmax_values_shape(49, feat, heads, *jet_shape(49, compute_l2))
     jet_layernorm.check_shape(feat, *jet_shape(30, True))  # C = 63
     with pytest.raises(ValueError, match="MAX_TANGENTS"):
         jet_layernorm.check_shape(feat, *jet_shape(31, True))  # C = 65
@@ -165,3 +166,42 @@ def test_kernel_limits_name_what_they_refuse():
         jet_layernorm.check_shape(48, 15, 3)
     with pytest.raises(ValueError, match="unsupported attention shape"):
         jet_attention.check_softmax_values_shape(6, 250, 4, 15, 3)
+
+
+@pytest.mark.parametrize("compute_l2", [True, False])
+def test_softmax_values_takes_every_system_up_to_25(compute_l2):
+    """Every N <= 25 at dh = 64 in both modes goes to a kernel on the card: the
+    tiled one at N = 6, the streamed one at every other N, aligned or not."""
+    feat, heads = 256, 4
+    for nelec in range(1, 26):
+        c, e = jet_shape(nelec, compute_l2)
+        jet_attention.check_softmax_values_shape(nelec, feat, heads, c, e)
+        want = "tiled" if nelec == 6 else "streamed"
+        assert jet_attention.softmax_values_route(nelec, feat // heads, c, e, True) == want
+        assert jet_attention.softmax_values_route(nelec, feat // heads, c, e, False) == "streamed"
+
+
+@pytest.mark.parametrize("tokens,head_dim,c,e,aligned,want", [
+    (6, 64, 15, 3, True, "tiled"), (6, 64, 13, 1, True, "tiled"),
+    (6, 64, 15, 3, False, "streamed"), (6, 64, 14, 2, True, "streamed"),
+    (6, 32, 13, 1, True, "streamed"), (8, 64, 17, 1, True, "streamed"),
+    (10, 64, 23, 3, True, "streamed"), (21, 64, 45, 3, True, "streamed"),
+    (3, 8, 2, 2, True, "streamed"), (5, 6, 5, 1, True, "streamed"),
+])
+def test_softmax_values_route(tokens, head_dim, c, e, aligned, want):
+    assert jet_attention.softmax_values_route(tokens, head_dim, c, e, aligned) == want
+
+
+# (T, dh, heads an item, stages): bytes.  A plane is tp rows (T rounded up to
+# 4) of the group's [q | k | v] at a row stride of 3 * group * dh floats, plus
+# 4 where that is a multiple of 8; the primal's copy and the ring; per head
+# 6 [tp][tp] + [tp], and two slots of 3 [tp][tp] + [tp] + [tp][dh]; 16 bytes
+# of mbarriers a stage.  N = 10, one head, one stage:
+# 4 (2 * 12 * 196 + (6 * 144 + 12) + 2 * (3 * 144 + 12 + 12 * 64)) + 16.
+@pytest.mark.parametrize("tokens,head_dim,group,stages,nbytes", [
+    (10, 64, 1, 1, 32_032), (10, 64, 4, 3, 201_072), (16, 64, 4, 2, 230_944),
+    (16, 64, 1, 1, 45_776), (25, 64, 2, 2, 235_008), (48, 64, 1, 1, 211_024),
+    (49, 64, 1, 1, 238_592), (3, 8, 1, 1, 1_984), (5, 6, 2, 2, 12_384),
+])
+def test_streamed_smem(tokens, head_dim, group, stages, nbytes):
+    assert jet_attention.softmax_values_smem(tokens, head_dim, group, stages) == nbytes
