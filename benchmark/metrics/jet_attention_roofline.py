@@ -1,0 +1,21 @@
+"""The jet attentions' share of their roofline: the least time of an
+iteration's calls (two a local energy, :func:`benchmark.work.kernels.attention_least`)
+over the device time of the ``jet_gemm*`` and ``jet_softmax_values*``
+kernels an iteration in the profiled block."""
+
+from benchmark.work import kernels
+
+
+def read(run):
+    if run.summary is None:
+        return None
+    ms = sum(v for k, v in run.summary["ms_by_name"].items()
+             if "jet_gemm" in k or "jet_softmax_values" in k) / run.iterations_traced
+    if ms <= 0:
+        return None
+    cfg = run.cfg
+    net = cfg.network.psiformer
+    c, e = kernels.jet_channels(sum(cfg.system.nspins), bool(cfg.system.compute_l2 or cfg.system.l2_penalty))
+    least = kernels.attention_least(cfg.batch_size, sum(cfg.system.nspins), net.num_heads * net.heads_dim,
+                                    net.num_heads, c, e)
+    return 100 * net.num_layers * least.seconds * 1e3 / ms
