@@ -418,10 +418,12 @@ class Log:
     """Log initial energy before any optimization (debugging aid)."""
 
     profile_dir: str | None = None
-    """If set, capture a jax.profiler trace of a few steady-state steps here.
+    """If set, write a ``torch.profiler`` Chrome trace (``trace.json``) here.
 
-    TPU-native observability addition over the reference (which has no tracing):
-    the trace covers steps [profile_start, profile_start + profile_steps).
+    An addition over the reference (which has no tracing): the trace covers
+    the blocks of steps [profile_start, profile_start + profile_steps), and
+    names the port's layers as ``deephall.*`` ranges beside the device's
+    kernels (:mod:`deephall_tpu_torch.tracing`).
     """
 
     profile_start: int = 10

@@ -35,7 +35,7 @@ import enum
 
 import torch
 
-from deephall_tpu_torch import parallel
+from deephall_tpu_torch import parallel, tracing
 from deephall_tpu_torch.config import System
 from deephall_tpu_torch.hamiltonian import forward_laplacian_local_energy, local_energy
 from deephall_tpu_torch.networks.blocks import FISHER_COTANGENT, kfac_capture
@@ -114,8 +114,9 @@ def orthogonality_stats_and_diff(
 
 
 def fixed_state_log_ratios(fixed_states, logpsi: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
-    """``[n_states, batch]`` complex ``log(phi_j(x_i) / psi(x_i))``, without gradients."""
-    with torch.no_grad():
+    """``[n_states, batch]`` complex ``log(phi_j(x_i) / psi(x_i))``, without
+    gradients; the span ``fixed_states``."""
+    with torch.no_grad(), tracing.span("fixed_states"):
         return torch.stack([f(data) for f in fixed_states]) - logpsi.detach()[None]
 
 
@@ -259,17 +260,24 @@ def make_loss_fn(model, system: System, mode: LossMode = LossMode.ENERGY_DIFF, f
 
     ``ENERGY_DIFF`` returns the clipped per-walker differences, ``ENERGY_GRAD``
     the real gradients and ``SR_F_VECTOR`` the complex tangents, as
-    ``{dotted.name: tensor}`` (empty for a network without parameters).
+    ``{dotted.name: tensor}`` (empty for a network without parameters).  The
+    local energy is the span ``local_energy``, a gradient mode's forward,
+    statistics and backward passes the span ``gradient``.
     """
     local_energy = batched_local_energy(model, system)
 
     def loss_fn(data: torch.Tensor, penalties: dict | None = None):
         with torch.no_grad():
-            el, other_observables = local_energy(data)
+            with tracing.span("local_energy"):
+                el, other_observables = local_energy(data)
             if mode == LossMode.ENERGY_DIFF:
                 log_ratios = (fixed_state_log_ratios(fixed_states, model(data), data)
                               if fixed_states else None)
                 return stats_and_clipped_diff(system, el, other_observables, log_ratios, penalties)
+        with tracing.span("gradient"):
+            return gradient(data, el, other_observables, penalties)
+
+    def gradient(data, el, other_observables, penalties):
         params = dict(model.named_parameters())
         with torch.enable_grad():
             logpsi = model(data)
@@ -298,13 +306,15 @@ def make_loss_fn(model, system: System, mode: LossMode = LossMode.ENERGY_DIFF, f
 def make_loss_and_capture_fn(model, system: System, fixed_states=None):
     """``fn(data, penalties=None) -> (stats, grads, inputs, dy)``: the energy gradient
     and the KFAC capture from one shared forward
-    (``deephall_tpu/loss.py:make_loss_and_capture_fn``)."""
+    (``deephall_tpu/loss.py:make_loss_and_capture_fn``); the spans
+    ``local_energy`` and ``gradient``."""
     local_energy = batched_local_energy(model, system)
 
     def fn(data: torch.Tensor, penalties: dict | None = None):
-        with torch.no_grad():
+        with torch.no_grad(), tracing.span("local_energy"):
             el, other_observables = local_energy(data)
-        return gradient_and_capture(model, system, data, el, other_observables,
-                                    fixed_states, penalties)
+        with tracing.span("gradient"):
+            return gradient_and_capture(model, system, data, el, other_observables,
+                                        fixed_states, penalties)
 
     return fn

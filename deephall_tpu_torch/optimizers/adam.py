@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from deephall_tpu_torch import tracing
 from deephall_tpu_torch.config import OptimizerAdam
 from deephall_tpu_torch.types import AdamState, CheckpointState
 from deephall_tpu_torch.weights import flatten, nest
@@ -22,7 +23,8 @@ B1, B2, EPS = 0.9, 0.999, 1e-8
 
 
 def make_adam_training_step(optim_cfg: OptimizerAdam, loss_grad_fn, model):
-    """``(init, step)``; ``loss_grad_fn(data, penalties) -> (stats, grads)`` (``ENERGY_GRAD``)."""
+    """``(init, step)``; ``loss_grad_fn(data, penalties) -> (stats, grads)`` (``ENERGY_GRAD``);
+    the parameter update is the span ``update`` (:mod:`deephall_tpu_torch.tracing`)."""
     params = dict(model.named_parameters())
 
     def zeros() -> dict:
@@ -38,7 +40,7 @@ def make_adam_training_step(optim_cfg: OptimizerAdam, loss_grad_fn, model):
     def step(state: CheckpointState, penalties: dict | None = None):
         stats, grads = loss_grad_fn(state.data, penalties) if penalties else loss_grad_fn(state.data)
         opt = state.opt_state
-        with torch.no_grad():
+        with torch.no_grad(), tracing.span("update"):
             count = opt.count + 1
             lr = optim_cfg.lr.schedule(opt.count)
             mu_old, nu_old = flatten(opt.mu), flatten(opt.nu)

@@ -28,7 +28,7 @@ from typing import NamedTuple
 
 import torch
 
-from deephall_tpu_torch import parallel
+from deephall_tpu_torch import parallel, tracing
 from deephall_tpu_torch.config import OptimizerKfac
 from deephall_tpu_torch.networks.blocks import LayerNorm, kfac_capture
 from deephall_tpu_torch.types import CheckpointState, KfacState
@@ -172,7 +172,8 @@ def kfac_update(optim_cfg: OptimizerKfac, specs: list[LayerSpec], params: dict,
 def make_kfac_training_step(optim_cfg: OptimizerKfac, capture_fn, model, nelec: int):
     """``(init, step)``; ``capture_fn(data, penalties) -> (stats, grads, inputs, dy)``
     (``loss.make_loss_and_capture_fn``).  The step's statistics carry the
-    learning rate, the norm-constraint coefficient and ``d^T F d`` besides."""
+    learning rate, the norm-constraint coefficient and ``d^T F d`` besides.
+    The update is the span ``update`` (:mod:`deephall_tpu_torch.tracing`)."""
     params = dict(model.named_parameters())
     specs: list[LayerSpec] = []
 
@@ -200,8 +201,9 @@ def make_kfac_training_step(optim_cfg: OptimizerKfac, capture_fn, model, nelec: 
     def step(state: CheckpointState, penalties: dict | None = None):
         stats, grads, inputs, dy = (
             capture_fn(state.data, penalties) if penalties else capture_fn(state.data))
-        opt_state, info = kfac_update(optim_cfg, layer_specs(), params, state.opt_state,
-                                      grads, inputs, dy)
+        with tracing.span("update"):
+            opt_state, info = kfac_update(optim_cfg, layer_specs(), params, state.opt_state,
+                                          grads, inputs, dy)
         return state._replace(opt_state=opt_state), {**stats, **info}
 
     return init, step

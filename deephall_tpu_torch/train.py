@@ -9,7 +9,9 @@ and the initial-energy probe on a run that starts at step 0, then blocks of
 read of the block's statistics to the host -> CSV rows -> checkpoint, with the
 optimizer state, on (time AND step multiple) OR NaN OR last step OR SIGTERM.
 ``log.profile_dir`` records a ``torch.profiler`` trace of the blocks that
-cover ``[profile_start, profile_start + profile_steps)``.
+cover ``[profile_start, profile_start + profile_steps)``, the port's layers in
+it as ``deephall.*`` ranges.  ``tracing.blocks()`` returns the device-clock
+time of those layers in each of the last 512 blocks.
 
 Launched by ``torchrun`` (or Slurm, or OpenMPI) on K processes, each rank
 holds ``batch_size / K`` walkers on its own device and the statistics, the
@@ -46,7 +48,7 @@ import numpy as np
 import torch
 import yaml
 
-from deephall_tpu_torch import mcmc, optimizers, parallel
+from deephall_tpu_torch import mcmc, optimizers, parallel, tracing
 from deephall_tpu_torch.config import (
     Config,
     OptimizerName,
@@ -152,20 +154,23 @@ def make_iteration_block(cfg: Config, mcmc_step, training_step):
         stats, pmove)``: ``state.mcmc_width``, the acceptance ring ``pmoves``
         and the iteration counter ``t`` are device tensors; ``stats`` is
         ``{key: [length] tensor}`` and ``pmove`` ``[length]``, stacked on the
-        device.  Nothing in a block reads a value back to the host.
+        device.  Nothing in a block reads a value back to the host.  Each
+        call is one block record of :mod:`deephall_tpu_torch.tracing`, its
+        sweeps in the span ``sweep``.
     """
     adapt = cfg.mcmc.adapt_frequency
 
     def block(state, pmoves, t, length: int, penalties=None):
         rows, pmove_rows = [], []
-        for _ in range(length):
-            with torch.no_grad():
-                data, pmove = mcmc_step(state.data, state.mcmc_width)
-            width, pmoves = mcmc.adapt_width(t, state.mcmc_width, pmoves, pmove, adapt)
-            t = t + 1
-            state, stats = training_step(state._replace(data=data, mcmc_width=width), penalties)
-            rows.append(stats)
-            pmove_rows.append(pmove)
+        with tracing.block(length, state.data.device):
+            for _ in range(length):
+                with torch.no_grad(), tracing.span("sweep"):
+                    data, pmove = mcmc_step(state.data, state.mcmc_width)
+                width, pmoves = mcmc.adapt_width(t, state.mcmc_width, pmoves, pmove, adapt)
+                t = t + 1
+                state, stats = training_step(state._replace(data=data, mcmc_width=width), penalties)
+                rows.append(stats)
+                pmove_rows.append(pmove)
         device = state.data.device
         stats = {k: torch.stack([torch.as_tensor(row[k], device=device) for row in rows])
                  for k in rows[0]}
