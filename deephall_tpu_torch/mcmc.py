@@ -18,7 +18,7 @@ from collections.abc import Callable
 
 import torch
 
-from deephall_tpu_torch import parallel
+from deephall_tpu_torch import parallel, tracing
 
 
 def sph_sampling(
@@ -77,15 +77,12 @@ def mh_update(
     return x_new, lp_new, cond.float().mean()
 
 
-def make_mcmc_step(batch_network: Callable[[torch.Tensor], torch.Tensor], steps: int = 10):
-    """``mcmc_step(data, width, generator) -> (data, pmove)``: ``steps`` MH moves.
+def make_sweep(batch_network: Callable[[torch.Tensor], torch.Tensor], steps: int = 10):
+    """``sweep(data, width, generator) -> (data, accept)``: ``steps`` MH moves
+    of this rank's shard, ``accept`` the mean acceptance over the moves and
+    the shard's walkers (a 0-d tensor).  No collective: device work only."""
 
-    ``pmove`` is the mean acceptance over the moves and over every rank's
-    walkers (a 0-d tensor on the device, one collective a sweep).  ``data`` is
-    this rank's shard; the draws are those of the global batch.
-    """
-
-    def mcmc_step(data: torch.Tensor, width, generator: torch.Generator):
+    def sweep(data: torch.Tensor, width, generator: torch.Generator):
         lp = 2.0 * batch_network(data).real
         accepts = torch.zeros((), device=data.device)
         shape = data.shape[:-1]
@@ -98,7 +95,111 @@ def make_mcmc_step(batch_network: Callable[[torch.Tensor], torch.Tensor], steps:
                 batch_network, data, lp, width, normal, uniform, uniform_accept
             )
             accepts = accepts + rate
-        return data, parallel.all_reduce_mean(accepts / steps)
+        return data, accepts / steps
+
+    return sweep
+
+
+class GraphedSweep:
+    """A sweep of :func:`make_sweep`, replayed as one CUDA graph a walker shape.
+
+    The key is the walkers' shape, dtype and device; it holds the graph of
+    one generator, the newest.  A run draws from one generator: a call with
+    another generator at a key's shape drops the key's graph, with its
+    memory, and starts over.  A key's first call with a generator runs the
+    sweep eagerly: the warm-up a capture needs (it makes ``utils.constant``'s
+    tensors, the library handles and their workspaces).  The second call
+    captures one whole sweep and replays it.  Every later call copies the
+    walkers and the width into the graph's inputs, replays, and returns fresh
+    tensors, so no replay overwrites a tensor an earlier call returned.
+
+    The generator is registered with its graph
+    (``CUDAGraph.register_generator_state``): a replay draws the Philox
+    numbers the eager sweep would draw from the generator's state, and
+    advances the state as far, so replayed and eager calls make one chain.
+
+    The graph reads the network's parameters where they lie.  It relies on
+    every change to them being made in place (KFAC's and Adam's ``p.sub_``,
+    ``weights.load_flax``'s ``copy_``) and on no parameter being moved to new
+    memory after the capture.  Walkers on the CPU run the sweep itself.  Each
+    call counts in the open block record (:func:`tracing.count`) as
+    ``sweep.replayed``, ``sweep.captured`` or ``sweep.eager``.
+
+    Memory: a graph keeps its own pool for as long as it lives, shared with
+    no eager work: one sweep's intermediates.  Every capture on a device runs
+    on one side stream, whose cuBLAS workspace (32 MiB on Hopper) cuBLAS
+    keeps for the life of the process.  ``torch.cuda.max_memory_allocated``
+    counts that workspace, and not the pool once the capture is done;
+    ``torch.cuda.memory_reserved`` counts both.
+    """
+
+    def __init__(self, sweep: Callable):
+        self.sweep = sweep
+        # (shape, dtype, device) -> (generator, None before the capture, or
+        # (graph, (data, width) in, (data, accept) out))
+        self.graphs: dict = {}
+
+    def __call__(self, data: torch.Tensor, width, generator: torch.Generator):
+        key = (tuple(data.shape), data.dtype, data.device)
+        entry = self.graphs.get(key)
+        if data.device.type != "cuda" or entry is None or entry[0] is not generator:
+            if data.device.type == "cuda":
+                self.graphs[key] = (generator, None)
+            tracing.count("sweep.eager")
+            return self.sweep(data, width, generator)
+        if entry[1] is None:
+            tracing.count("sweep.captured")
+            entry = self.graphs[key] = (generator, self._capture(data, generator))
+        else:
+            tracing.count("sweep.replayed")
+        graph, (data_in, width_in), (data_out, accept) = entry[1]
+        data_in.copy_(data)
+        width_in.fill_(width)  # a float or a 0-d tensor, copied on the device
+        graph.replay()
+        return data_out.clone(), accept.clone()
+
+    def _capture(self, data: torch.Tensor, generator: torch.Generator):
+        inputs = (torch.empty_like(data), torch.empty((), device=data.device))
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(generator)
+        # capture_begin and capture_end, not torch.cuda.graph, which empties the
+        # allocator's cache first: the eager layers then grow their segments
+        # anew around the graph's pool, and on an H100 the benchmark's cells
+        # held 0.75-2.0 GB more reserved memory.
+        stream = _CAPTURE_STREAMS.get(data.device)
+        if stream is None:
+            stream = _CAPTURE_STREAMS[data.device] = torch.cuda.Stream(data.device)
+        stream.wait_stream(torch.cuda.current_stream(data.device))
+        with torch.no_grad(), torch.cuda.stream(stream):
+            graph.capture_begin()
+            try:
+                outputs = self.sweep(*inputs, generator)
+            finally:
+                graph.capture_end()
+        return graph, inputs, outputs
+
+
+_CAPTURE_STREAMS: dict = {}  # device -> the side stream of every capture there
+
+
+def make_mcmc_step(
+    batch_network: Callable[[torch.Tensor], torch.Tensor], steps: int = 10, graphed: bool = False
+):
+    """``mcmc_step(data, width, generator) -> (data, pmove)``: ``steps`` MH moves.
+
+    ``pmove`` is the mean acceptance over the moves and over every rank's
+    walkers (a 0-d tensor on the device, one collective a sweep, run eagerly).
+    ``data`` is this rank's shard; the draws are those of the global batch.
+    ``graphed`` replays the shard's sweep as CUDA graphs (:class:`GraphedSweep`),
+    for a network whose parameters change only in place.
+    """
+    sweep = make_sweep(batch_network, steps)
+    if graphed:
+        sweep = GraphedSweep(sweep)
+
+    def mcmc_step(data: torch.Tensor, width, generator: torch.Generator):
+        data, accept = sweep(data, width, generator)
+        return data, parallel.all_reduce_mean(accept)
 
     return mcmc_step
 

@@ -142,6 +142,19 @@ def _dense(p: dict, t: Jet, use_bias: bool = True) -> Jet:
     return fwdlap.linear(lambda v: v @ kernel, t, bias=p["bias"] if use_bias else None)
 
 
+def _dense_planes(p: dict, t: Jet) -> Jet:
+    """:func:`_dense` without a bias, each field's product written into one
+    ``[P, *B, T, F]`` buffer in the attention's plane order, so that the
+    attention reads the planes in place instead of stacking a copy."""
+    kernel = p["kernel"]
+    c = t.j.shape[0]
+    out = t.x.new_empty((c + t.d.shape[0] + 2, *t.x.shape[:-1], kernel.shape[-1]))
+    planes = Jet(out[0], out[1 : 1 + c], out[1 + c], out[2 + c :])
+    for field, rows in zip(t, planes):
+        torch.matmul(field, kernel, out=rows)
+    return planes
+
+
 def _featured_orbitals(p: dict, t: Jet, nspins) -> Jet:
     """Per-spin-sector complex orbital projections ``[*B, N, F, ne, nd]``."""
     sectors = []
@@ -203,7 +216,7 @@ def psiformer_logpsi_jet(
     # Each intermediate jet is dropped as soon as it is used: at batch 3360 in
     # L^2 mode one [P, B, T, D] jet is 413 MB.
     tower = p["PsiformerLayers_0"]
-    h = _dense(tower["Dense_0"], h0, use_bias=False)
+    h = _dense_planes(tower["Dense_0"], h0)
     del h0
     for i in range(model.num_layers):
         attn = attention(tower[f"MultiHeadAttention_{i}"], model.num_heads, h)

@@ -23,6 +23,10 @@ The records of the last :data:`RING` blocks stay on the host; :func:`blocks`
 returns them, each with the device-clock ms of every span name summed over
 the block, its calls, its parent span, and ``period_ms``, from this block's
 start to the next one's (``None`` until a next block starts).
+
+``count(name)`` counts an event in the open block record, such as how each
+sweep ran (``sweep.replayed``, ``sweep.captured``, ``sweep.eager``;
+``mcmc.GraphedSweep``); each record returns its counts as ``counts``.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ class Block(NamedTuple):
     profiled: bool  # a profiler was active at its start
     spans: dict  # {name: SpanTime}
     period_ms: float | None  # from its start to the next block's start
+    counts: dict = {}  # {name: count} of :func:`count`; read only
 
 
 class _Record:
@@ -63,6 +68,7 @@ class _Record:
         self.ms: dict[str, float] = {}
         self.calls: dict[str, int] = {}
         self.parent: dict[str, str | None] = {}
+        self.counts: dict[str, int] = {}
         self.stack: list[str] = []
         self.pairs: list = []  # (name, parent, start event, end event), not yet read
         self.start = self.now()
@@ -122,7 +128,8 @@ class _Record:
     def block(self) -> Block:
         spans = {name: SpanTime(ms, self.calls[name], self.parent[name])
                  for name, ms in self.ms.items()}
-        return Block(self.index, self.length, self.profiled, spans, self.period_ms)
+        return Block(self.index, self.length, self.profiled, spans, self.period_ms,
+                     dict(self.counts))
 
 
 class Recorder:
@@ -202,6 +209,14 @@ def block(length: int, device: torch.device):
         yield
     finally:
         _recorder.end(record)
+
+
+def count(name: str) -> None:
+    """One more ``name`` in the open block record (``sweep.replayed``, ...);
+    outside a block nothing is counted."""
+    record = _recorder.open
+    if record is not None:
+        record.counts[name] = record.counts.get(name, 0) + 1
 
 
 def blocks() -> list[Block]:

@@ -203,10 +203,11 @@ def fresh_walkers(cfg: Config, model, generator: torch.Generator, device) -> tor
 
 
 def make_program(cfg: Config, model, generator: torch.Generator, fixed_states=None) -> Program:
-    """The sweep (its tower in :func:`sweep_dtype`), the optimizer's init and
-    training step, and the iteration block over both, drawing from ``generator``."""
+    """The sweep (its tower in :func:`sweep_dtype`, replayed as CUDA graphs on a
+    card: ``mcmc.GraphedSweep``), the optimizer's init and training step, and
+    the iteration block over both, drawing from ``generator``."""
     dtype = sweep_dtype()
-    mcmc_step = mcmc.make_mcmc_step(lambda x: model(x, dtype), steps=cfg.mcmc.steps)
+    mcmc_step = mcmc.make_mcmc_step(lambda x: model(x, dtype), steps=cfg.mcmc.steps, graphed=True)
     opt_init, training_step = optimizers.make_optimizer_step(cfg, model, fixed_states)
     block = make_iteration_block(
         cfg, lambda x, width: mcmc_step(x, width, generator), training_step)

@@ -122,6 +122,22 @@ def test_attention_pieces_compose(c, e):
     assert_jets_close(got, jet_attention.attention_jet_plain(p, HEADS, x))
 
 
+@pytest.mark.parametrize("c,e", [(13, 1), (15, 3)])
+def test_the_first_dense_writes_the_attention_planes(c, e):
+    # The tower's first dense layer writes its jet into one buffer in the
+    # attention's plane order: the same numbers as the dense layer, bit for
+    # bit, and planes the attention reads in place (no stacked copy).
+    rng = np.random.default_rng(11)
+    x = to_torch(random_jet(rng, 4, 6, 7, c, e))
+    p = {"kernel": torch.from_numpy(rng.standard_normal((7, FEAT)).astype(np.float32))}
+    want = nets_fwdlap._dense(p, x, use_bias=False)
+    got = nets_fwdlap._dense_planes(p, x)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    stacked = jet_attention.packed_planes(got)
+    assert stacked is not None and stacked.data_ptr() == got.x.data_ptr()
+    assert torch.equal(stacked, torch.cat([want.x[None], want.j, want.l[None], want.d]))
+
+
 def test_cpu_tensors_take_the_plain_versions():
     rng = np.random.default_rng(0)
     x = to_torch(random_jet(rng, 4, 6, FEAT, 5, 1))
