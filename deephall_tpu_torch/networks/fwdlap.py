@@ -13,13 +13,16 @@ JAX package takes nested ``jax.jvp`` along straight lines in
 electron's nearer pole (:func:`envelope_fn`), so the jet is that of
 ``log psi' = log psi - i Q sum_i s_i phi_i``; its primal differs from
 ``Psiformer.forward``'s by that phase.  The Jastrow factor is folded in
-algebraically: ``log psi' = J + log sum det(Phi')``.
+algebraically: ``log psi' = J + log sum det(Phi')``.  From the tower's output
+jet to the determinants' the jet runs in the span ``orbitals``
+(:mod:`deephall_tpu_torch.tracing`).
 """
 
 from __future__ import annotations
 
 import torch
 
+from deephall_tpu_torch import tracing
 from deephall_tpu_torch.config import OrbitalType
 from deephall_tpu_torch.networks.blocks import envelope_exponents, jastrow_pairs
 from deephall_tpu_torch.networks.psiformer import Psiformer, spin_values
@@ -183,6 +186,59 @@ def _featured_orbitals(p: dict, t: Jet, nspins) -> Jet:
     return Jet(*(torch.cat(parts, dim=-4) for parts in zip(*sectors)))
 
 
+ORBITAL_GROUP_BYTES = 4 * 2**30
+"""The most bytes of the orbital head's output jet made at once: the jet of
+``[*B, N, 2Q+1, N, K]`` complex features takes ``P (2Q+1) N^2 K`` complex
+numbers a walker (28.9 GB at N=10, 2Q=27, 16 determinants, batch 3360 and
+24 planes), and its contraction with the envelope copies the tangents once
+more, so the walkers go through in groups of at most this many bytes, each
+counted as ``orbitals.group`` in the block record when there are several.
+
+On an H100 at that size the local energy took 281-282 ms in 2, 3, 4 or 7
+groups, peaking at 29.0, 20.1, 15.7 and 10.0 GB, and 267 ms at 55.7 GB in
+one: past the first split the count costs no time, so the budget keeps the
+peak small."""
+
+
+def orbital_groups(batch: int, walker_bytes: int) -> list[slice]:
+    """Contiguous walker ranges, as few and as even as keep each group within
+    :data:`ORBITAL_GROUP_BYTES`; one group of every walker when they fit."""
+    count = max(1, -(-batch * walker_bytes // ORBITAL_GROUP_BYTES))
+    size = -(-batch // count)
+    return [slice(start, min(start + size, batch)) for start in range(0, batch, size)]
+
+
+def _walkers(t: Jet, rows: slice) -> Jet:
+    """The jet of the walkers ``rows`` (the first batch axis of every field): views."""
+    return Jet(t.x[rows], t.j[:, rows], t.l[rows], t.d[:, rows])
+
+
+def _cat_walkers(parts: list[Jet]) -> Jet:
+    return Jet(*(torch.cat(fields, dim=axis) for fields, axis in zip(zip(*parts), (0, 1, 0, 1))))
+
+
+def _orbital_matrices(model: Psiformer, p: dict, piece: list) -> Jet:
+    """Jet of the orbital matrices ``[*B, nd, N, ne]`` from ``piece = [h, env]``,
+    the tower's output jet and the envelope's.  ``piece`` is emptied, so that
+    the tower's jet is freed once projected when no one else holds it."""
+    h, env = piece
+    piece.clear()
+    orbitals = _featured_orbitals(p["featured_orbitals"], h, model.nspins)
+    del h
+    if model.orbital_type == OrbitalType.sparse:
+        lll = p["lll_weight"]
+        kernel = lll["kernel"].to(orbitals.x.dtype)
+        orbitals = fwdlap.linear(
+            lambda v: torch.movedim(v, -3, -1) @ kernel, orbitals, bias=lll["bias"]
+        )  # [*B, N, ne, nd, n_orb]
+        orbitals = fwdlap.linear(lambda v: torch.movedim(v, -1, -3), orbitals)
+
+    contracted = fwdlap.bilinear(
+        lambda o, e: torch.einsum("...nfed,...nf->...ned", o, e), orbitals, env
+    )
+    return fwdlap.linear(lambda v: torch.movedim(v, -1, -3), contracted)
+
+
 def psiformer_logpsi_jet(
     model: Psiformer, data: torch.Tensor, compute_l2: bool = False, kernels: bool = True
 ) -> Jet:
@@ -228,21 +284,24 @@ def psiformer_logpsi_jet(
         h = layernorm(tower[f"LayerNorm_{2 * i + 1}"], h, residual=mlp)
         del mlp
 
-    orbitals = _featured_orbitals(p["Orbitals_0"]["featured_orbitals"], h, model.nspins)
-    del h
-    if model.orbital_type == OrbitalType.sparse:
-        lll = p["Orbitals_0"]["lll_weight"]
-        kernel = lll["kernel"].to(orbitals.x.dtype)
-        orbitals = fwdlap.linear(
-            lambda v: torch.movedim(v, -3, -1) @ kernel, orbitals, bias=lll["bias"]
-        )  # [*B, N, ne, nd, n_orb]
-        orbitals = fwdlap.linear(lambda v: torch.movedim(v, -1, -3), orbitals)
-
-    contracted = fwdlap.bilinear(
-        lambda o, e: torch.einsum("...nfed,...nf->...ned", o, e), orbitals, env
-    )
-    phi_jet = fwdlap.linear(lambda v: torch.movedim(v, -1, -3), contracted)
     jastrow = fwdlap.jet_of_fn(
         jastrow_fn(model.nspins, p["Jastrow_0"]), data, seeds, extras
     )
-    return fwdlap.add(fwdlap.logsumdet_jet(phi_jet), jastrow)
+    # The orbital head, the envelope contraction and the determinants.
+    with tracing.span("orbitals"):
+        nelec = sum(model.nspins)
+        planes = h.j.shape[0] + h.d.shape[0] + 2
+        per_walker = planes * nelec**2 * (model.flux + 1) * model.ndets * 2 * h.x.element_size()
+        groups = orbital_groups(h.x.shape[0], per_walker)
+        pieces = ([[h, env]] if len(groups) == 1
+                  else [[_walkers(h, rows), _walkers(env, rows)] for rows in groups])
+        del h
+        parts = []
+        for piece in pieces:
+            if len(pieces) > 1:
+                tracing.count("orbitals.group")
+            parts.append(_orbital_matrices(model, p["Orbitals_0"], piece))
+        phi_jet = parts[0] if len(parts) == 1 else _cat_walkers(parts)
+        del parts
+        logdet = fwdlap.logsumdet_jet(phi_jet)
+    return fwdlap.add(logdet, jastrow)

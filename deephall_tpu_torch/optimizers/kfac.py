@@ -18,7 +18,9 @@ pi-split damping, takes the learning rate at the step before the increment,
 and scales the step by ``min(1, sqrt(c / (lr^2 d^T F d)))``, the norm
 constraint.  Factor products and solves are ``torch.matmul`` and
 ``torch.linalg.solve_ex``; parameters are updated in place, and nothing is
-read back to the host.
+read back to the host.  The orbital head's blocks (``Orbitals_0``) are
+factored and solved in the span ``orbital_factors``, once in each of
+:func:`factor_update` and :func:`precondition`.
 """
 
 from __future__ import annotations
@@ -63,6 +65,18 @@ def discover(model, nelec: int) -> list[LayerSpec]:
     return specs
 
 
+def _head_in_span(specs: list[LayerSpec]):
+    """``specs`` in their order; from the first of the orbital head's blocks
+    (``Orbitals_0``), which ``discover`` puts last, the loop's body runs
+    inside the span ``orbital_factors``."""
+    head = next((i for i, spec in enumerate(specs) if spec.path.startswith("Orbitals_0/")), len(specs))
+    assert all(spec.path.startswith("Orbitals_0/") for spec in specs[head:]), "the head's blocks come last"
+    yield from specs[:head]
+    if head < len(specs):
+        with tracing.span("orbital_factors"):
+            yield from specs[head:]
+
+
 def factor_update(specs: list[LayerSpec], inputs: dict, dy: dict) -> tuple[dict, dict]:
     """One step's curvature blocks from the captured inputs and sensitivities.
 
@@ -71,7 +85,7 @@ def factor_update(specs: list[LayerSpec], inputs: dict, dy: dict) -> tuple[dict,
     the moments of the whole batch and solves the same damped systems.
     """
     kron, diag = {}, {}
-    for spec in specs:
+    for spec in _head_in_span(specs):
         a, g = inputs[spec.path], dy[spec.path]
         a = a.real if a.is_complex() else a
         g = g.real if g.is_complex() else g
@@ -103,7 +117,7 @@ def precondition(specs: list[LayerSpec], state: KfacState, grads: dict, damping:
     updates = {}
     quad = torch.zeros((), device=state.weight.device)
     weight = torch.clamp(state.weight, min=1e-8)
-    for spec in specs:
+    for spec in _head_in_span(specs):
         if spec.kind == "kron":
             scale = math.sqrt(float(spec.repeats))
             a_mat = state.kron[spec.path]["a"] / weight * scale

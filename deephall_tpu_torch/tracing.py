@@ -2,7 +2,10 @@
 device clock inside the iteration block.
 
 ``span(name)`` marks one layer of an iteration (``sweep``, ``local_energy``,
-``gradient``, ``fixed_states``, ``update``).  It does two things:
+``gradient``, ``fixed_states``, ``update``) or a part of one (``orbitals``,
+the jet's orbital head and determinants in ``local_energy``;
+``orbital_factors``, KFAC's orbital-head blocks in ``update``).  It does two
+things:
 
 * while a ``torch.profiler`` is active it opens the range
   ``deephall.<name>`` (``torch.profiler.record_function``), which lands in

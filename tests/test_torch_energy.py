@@ -24,9 +24,9 @@ from deephall_tpu import hamiltonian as jax_hamiltonian
 from deephall_tpu.hamiltonian import forward_laplacian_local_energy as jax_local_energy
 from deephall_tpu.networks import make_network as jax_make_network
 from deephall_tpu_torch import config
-from deephall_tpu_torch import hamiltonian
+from deephall_tpu_torch import hamiltonian, tracing
 from deephall_tpu_torch.hamiltonian import forward_laplacian_local_energy
-from deephall_tpu_torch.networks import make_network
+from deephall_tpu_torch.networks import fwdlap, make_network
 from deephall_tpu_torch.weights import load_flax
 
 torch.set_num_threads(2)
@@ -35,13 +35,20 @@ ARTIFACT = Path(__file__).resolve().parents[1] / "artifacts/prod_r4"
 OBSERVABLES = ("angular_momentum_z", "angular_momentum_z_square", "kinetic", "potential")
 
 
-def compare(raw, params, data, atol=1e-4, l2_atol=1e-3):
+def jax_energies(raw, params, data):
+    """The JAX package's ``(E_L, observables)`` of ``data``."""
     jcfg = jax_config.Config.from_dict(raw)
-    cfg = config.Config.from_dict(raw)
     jmodel = jax_make_network(jcfg.system, jcfg.network)
+    return jax.jit(jax_local_energy(jmodel, jcfg.system))(params, jnp.asarray(data))
+
+
+def compare(raw, params, data, atol=1e-4, l2_atol=1e-3, want=None):
+    """The port's local energy against the JAX package's, or against ``want``,
+    its result on the same inputs."""
+    cfg = config.Config.from_dict(raw)
     model = make_network(cfg.system, cfg.network)
     load_flax(model, params)
-    want_el, want = jax.jit(jax_local_energy(jmodel, jcfg.system))(params, jnp.asarray(data))
+    want_el, want = want if want is not None else jax_energies(raw, params, data)
     with torch.no_grad():
         got_el, got = forward_laplacian_local_energy(model, cfg.system)(torch.from_numpy(data))
     np.testing.assert_allclose(got_el.numpy(), np.asarray(want_el), rtol=1e-4, atol=atol)
@@ -85,6 +92,44 @@ def test_random_sparse_two_determinants():
     data = np.stack([np.arccos(rng.uniform(-0.9, 0.9, (6, 4))),
                      rng.uniform(-np.pi, np.pi, (6, 4))], -1).astype(np.float32)
     compare(raw, params, data, atol=2e-3, l2_atol=2e-3)
+
+
+PUBLISHED = {
+    "system": {"nspins": [4, 0], "flux": 9, "compute_l2": True},
+    "network": {"psiformer": {"num_layers": 4, "num_heads": 2, "heads_dim": 8, "determinants": 16}},
+}
+
+
+@pytest.fixture(scope="module")
+def published_depth():
+    """The published Psiformer's depth and determinants (4 layers, 16
+    determinants, full orbitals) at small widths, N=4, 2Q=9, on flax's
+    initial weights and 8 walkers, with the JAX package's energies."""
+    jcfg = jax_config.Config.from_dict(PUBLISHED)
+    jmodel = jax_make_network(jcfg.system, jcfg.network)
+    params = jax.tree.map(
+        np.asarray, jax.jit(jmodel.init)(jax.random.PRNGKey(3), jnp.zeros((4, 2)))
+    )
+    rng = np.random.default_rng(5)
+    data = np.stack([np.arccos(rng.uniform(-0.9, 0.9, (8, 4))),
+                     rng.uniform(-np.pi, np.pi, (8, 4))], -1).astype(np.float32)
+    return params, data, jax_energies(PUBLISHED, params, data)
+
+
+@pytest.mark.parametrize("budget", [None, 1], ids=["one_group", "a_group_a_walker"])
+def test_published_depth_and_determinants_in_walker_groups(published_depth, budget, monkeypatch):
+    """The port's orbital head, envelope contraction and determinants in walker
+    groups (``fwdlap.orbital_groups``) and all at once, each against JAX.
+
+    With a budget of one byte every walker is its own group, 8 in all.  Both
+    packages lie within 1.3e-4 of a float64 evaluation of the port on these
+    walkers (L_z^2, of size 60), inside the module's rtol 1e-4."""
+    params, data, want = published_depth
+    if budget is not None:
+        monkeypatch.setattr(fwdlap, "ORBITAL_GROUP_BYTES", budget)
+    with tracing.block(1, "cpu"):
+        compare(PUBLISHED, params, data, want=want)
+    assert tracing.blocks()[-1].counts == ({} if budget is None else {"orbitals.group": len(data)})
 
 
 @pytest.mark.parametrize("interaction", ["coulomb", "harmonic"])

@@ -3,7 +3,8 @@
 A tiny Psiformer (N=3, 2Q=2, 8 walkers) runs blocks of 3 through
 ``train.make_program``, as the CLI builds them: each block call is one record
 holding the device-clock time (``time.perf_counter`` here) of its sweep, local
-energy, gradient, fixed-state and update spans; outside a block a span
+energy, gradient, fixed-state and update spans, and of the orbital head's
+spans nested in the local energy and the update; outside a block a span
 records nothing; with no profiler active no ``record_function`` range is
 opened; under ``torch.profiler`` the spans are ``deephall.*`` ranges in the
 trace, nested in the caller's.  The CUDA path's event bookkeeping runs on
@@ -44,6 +45,14 @@ TINY = [
     "network.psiformer.heads_dim=4", "mcmc.steps=2", "mcmc.adapt_frequency=4",
 ]
 LAYERS = {"sweep", "local_energy", "gradient", "update"}
+# The nested spans, their parents and their calls an iteration: the jet's
+# orbital head once a local energy, KFAC's head blocks once in the factor
+# products and once in the solves.
+NESTED = {"orbitals": ("local_energy", 1), "orbital_factors": ("update", 2)}
+
+
+def nested(optimizer: str) -> set:
+    return {"orbitals", "orbital_factors"} if optimizer == "kfac" else {"orbitals"}
 
 
 def program(optimizer: str, fixed: bool = False):
@@ -82,9 +91,12 @@ def run_blocks(optimizer: str, fixed: bool = False, blocks: int = 1):
 def test_a_training_block_records_its_layers(optimizer):
     (record,), _ = run_blocks(optimizer)
     assert record.length == LENGTH and not record.profiled and record.period_ms is None
-    assert set(record.spans) == LAYERS
+    assert set(record.spans) == LAYERS | nested(optimizer)
     for name, span in record.spans.items():
-        assert span.calls == LENGTH and span.parent is None and span.ms > 0, name
+        parent, calls = NESTED.get(name, (None, 1))
+        assert span.calls == calls * LENGTH and span.parent == parent and span.ms > 0, name
+        if parent is not None:
+            assert span.ms <= record.spans[parent].ms, name
 
 
 @pytest.mark.parametrize("optimizer, parent", [("kfac", "gradient"), ("adam", "gradient"),
@@ -99,7 +111,7 @@ def test_fixed_states_under_the_gradient(optimizer, parent):
 
 def test_an_inference_block_has_no_gradient_or_update():
     (record,), _ = run_blocks("none")
-    assert set(record.spans) == {"sweep", "local_energy"}
+    assert set(record.spans) == {"sweep", "local_energy", "orbitals"}
     assert all(span.calls == LENGTH for span in record.spans.values())
 
 
@@ -133,7 +145,7 @@ def test_no_profiler_no_range(monkeypatch):
     monkeypatch.setattr(torch.profiler, "record_function", refuse)
     monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
     (record,), _ = run_blocks("kfac", fixed=True)
-    assert set(record.spans) == LAYERS | {"fixed_states"}
+    assert set(record.spans) == LAYERS | {"fixed_states"} | nested("kfac")
 
 
 def test_the_profiler_trace_names_the_layers(tmp_path):
@@ -150,8 +162,9 @@ def test_the_profiler_trace_names_the_layers(tmp_path):
     ours = [e for e in host if e["name"].startswith(tracing.PREFIX)]
     counts = {name: sum(1 for e in ours if e["name"] == name)
               for name in {e["name"] for e in ours}}
-    assert counts == {f"deephall.{name}": LENGTH
-                      for name in ("sweep", "local_energy", "gradient", "fixed_states", "update")}
+    assert counts == {f"deephall.{name}": NESTED.get(name, (None, 1))[1] * LENGTH
+                      for name in ("sweep", "local_energy", "gradient", "fixed_states", "update",
+                                   "orbitals", "orbital_factors")}
 
     def inside(inner, outer):
         return outer["ts"] <= inner["ts"] and inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"]
@@ -161,6 +174,11 @@ def test_the_profiler_trace_names_the_layers(tmp_path):
     for e in ours:
         if e["name"] == "deephall.fixed_states":
             assert any(inside(e, g) for g in gradients)
+    for name, (parent, _) in NESTED.items():
+        parents = [e for e in ours if e["name"] == f"deephall.{parent}"]
+        for e in ours:
+            if e["name"] == f"deephall.{name}":
+                assert any(inside(e, p) for p in parents), name
     sweep = next(e for e in ours if e["name"] == "deephall.sweep")
     start, end = sweep["ts"] + 0.01 * sweep["dur"], sweep["ts"] + 0.99 * sweep["dur"]
     assert trace.spanning_host_op(host, start, end) == "deephall.sweep"
