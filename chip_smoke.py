@@ -17,7 +17,11 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
    residual) and its staged kernel (without a residual, which the streamed
    one does not take), each beside a plain pass over the same bytes
    (``torch.add``), the staged one also beside the generic kernel on the
-   same inputs, timed in turns;
+   same inputs, timed in turns; then phase ``orbital_head``: the orbital
+   head's kernel against its plain version at the three benchmark
+   configurations' shapes (N=6 in both modes, N=10 with 1 and 16
+   determinants), with its time, the plain version's, the materialised
+   route's it replaced (``library_ms``) and its bound;
 4. slice: the inference CLI on the converged N=6 checkpoint
    (``artifacts/prod_r4``), 20 iterations at batch 3360 with L^2 on and the
    bf16 sweep; the mean energy must lie within 0.005 of 6.8681, each
@@ -584,6 +588,89 @@ def phase_kernels(device, rates) -> dict:
     return results
 
 
+# Phase orbital_head: (name, N, 2Q, determinants, E) of the benchmark's
+# configurations and jet modes, at batch 3360 and D = 256.
+ORBITAL_SHAPES = (("N6C15E3", 6, 15, 1, 3), ("N6C13E1", 6, 15, 1, 1),
+                  ("N10C21E1", 10, 27, 1, 1), ("N10C21E1K16", 10, 27, 16, 1))
+
+
+def orbital_head_rows(device, rates, nelec: int, flux: int, ndet: int, e: int) -> dict:
+    """The orbital head's kernel against its plain version on random inputs of
+    one shape (the tower jet, the envelope's jet at random walkers, the head's
+    weights), with its time, the plain version's, the materialised route's it
+    replaced (the complex cuBLAS GEMM and the envelope ``einsum`` in walker
+    groups, ``kernels=False``'s) and its bound."""
+    from types import SimpleNamespace
+
+    from deephall_tpu_torch.config import OrbitalType
+    from deephall_tpu_torch.networks import fwdlap as network_jet
+    from deephall_tpu_torch.ops import fwdlap
+    from deephall_tpu_torch.ops import orbital_head as oh
+    from deephall_tpu_torch.ops.fwdlap import Jet
+
+    gen = torch.Generator(device=device).manual_seed(100 * nelec + ndet + e)
+    c, harmonics, pairs = 2 * nelec + e, flux + 1, nelec * ndet
+    planes = c + e + 2
+
+    def normal(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device=device)
+
+    h = Jet(normal(BATCH, nelec, FEAT), normal(c, BATCH, nelec, FEAT),
+            normal(BATCH, nelec, FEAT), normal(e, BATCH, nelec, FEAT))
+    theta = torch.acos(2 * torch.rand(BATCH, nelec, generator=gen, device=device) - 1)
+    phi = 2 * math.pi * torch.rand(BATCH, nelec, generator=gen, device=device)
+    data = torch.stack([theta, phi], dim=-1)
+    env = fwdlap.jet_of_fn(network_jet.envelope_fn(flux), data,
+                           fwdlap.electron_seeds(data, e == 3), e)
+    p = {f"DenseGeneral_{i}": {"kernel": normal(FEAT, harmonics, nelec, ndet, scale=FEAT**-0.5),
+                               "bias": normal(harmonics, nelec, ndet, scale=0.1)}
+         for i in range(2)}
+    spins = (nelec, 0)
+    before = oh.orbital_matrices_jet.launches
+    got = oh.orbital_matrices_jet(p, h, env, spins)
+    if oh.orbital_matrices_jet.launches != before + 1:
+        raise AssertionError(f"orbital_head {nelec, ndet, e}: the kernel did not launch")
+    err = compare(f"orbital_head {nelec, ndet, e}", tuple(got),
+                  tuple(oh.orbital_matrices_plain(p, h, env, spins)), KERNEL_TOL)
+    del got
+    model = SimpleNamespace(nspins=spins, orbital_type=OrbitalType.full)
+    walker = planes * nelec**2 * harmonics * ndet * 8  # the feature jet, complex64
+
+    def materialised():
+        parts = [network_jet._orbital_matrices(
+                     model, {"featured_orbitals": p},
+                     [network_jet._walkers(h, rows), network_jet._walkers(env, rows)], False)
+                 for rows in network_jet.orbital_groups(BATCH, walker)]
+        return parts[0] if len(parts) == 1 else network_jet._cat_walkers(parts)
+
+    rows = planes * BATCH * nelec
+    product_flops = 2 * rows * FEAT * 2 * harmonics * pairs
+    contraction_flops = 8 * harmonics * BATCH * nelec * pairs * (planes + oh.side_planes(e))
+    nbytes = (rows * FEAT * 4 + (c + e + 2) * BATCH * nelec * harmonics * 8
+              + planes * BATCH * pairs * nelec * 8)
+    least = bound(nbytes, contraction_flops, rates, product_flops)
+    plan = oh.column_plan(harmonics, pairs)
+    row = against(dict(
+        **err, plan=plan._asdict(), groups=len(network_jet.orbital_groups(BATCH, walker)),
+        ms=cuda_ms(lambda: oh.orbital_matrices_jet(p, h, env, spins)),
+        plain_ms=cuda_ms(lambda: oh.orbital_matrices_plain(p, h, env, spins), reps=3),
+        library_ms=cuda_ms(materialised, reps=3, warmup=1),
+        bound_ms=least[0], bound_by=least[1],
+    ))
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_orbital_head(device, rates) -> dict:
+    """The orbital head's kernel at the benchmark's three configurations: its
+    rows, keyed by shape; ``library_ms`` is the materialised route it replaced."""
+    results = {}
+    for name, nelec, flux, ndet, e in ORBITAL_SHAPES:
+        results[name] = orbital_head_rows(device, rates, nelec, flux, ndet, e)
+        emit(phase="orbital_head", shape=name, **results[name])
+    return results
+
+
 def table_numbers(row: dict) -> dict:
     """``row`` for the kernel table: ``bound_by`` is ``bytes`` or ``operations`` there,
     and which operations (three TF32 products) goes to ``bound_detail``."""
@@ -1117,13 +1204,14 @@ def launches_per_local_energy(layers: int = 2, production: bool = True) -> dict:
     """Each kernel's launches in one local energy of the production Psiformer;
     every launch of the production shapes (N = 6) takes the kernel built for
     them, and at any other N (``production`` false) the staged LayerNorm and
-    the streamed softmax/values kernel take every launch."""
+    the streamed softmax/values kernel take every launch; the orbital head's
+    kernel runs once at every N."""
     built = int(production)
     return {
         "jet_layernorm": 2 * layers, "jet_attention": layers, "jet_gemm": 2 * layers,
         "jet_softmax_values": layers, "jet_gemm_tensor_core": 2 * layers,
         "jet_softmax_values_tiled": built * layers, "jet_layernorm_streamed": built * 2 * layers,
-        "jet_layernorm_staged": (1 - built) * 2 * layers,
+        "jet_layernorm_staged": (1 - built) * 2 * layers, "orbital_head": 1,
     }
 
 
@@ -2491,6 +2579,7 @@ def main() -> int:
         raise AssertionError(f"build: a kernel spills: {spilled}")
 
     kernels = phase_kernels(device, rates)
+    orbital_rows = phase_orbital_head(device, rates)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
         counts = phase_slice(Path(workdir))
         phase_slice_excited(Path(workdir))
@@ -2557,6 +2646,13 @@ def main() -> int:
                       shape="N10C23E3",
                       launches=large_counts["jet_softmax_values"] - large_counts["jet_softmax_values_tiled"],
                       **table_numbers(streamed)))
+    # The orbital head's kernel (no TPU kernel: the JAX package leaves the head
+    # to XLA): its rows at the three configurations, its launches in phase large_n.
+    table.append(dict(name="orbital_head_jet", route="cuda",
+                      source="deephall_tpu_torch/csrc/orbital_head.cu",
+                      replaces="deephall_tpu/networks/fwdlap.py:_featured_orbitals (XLA)",
+                      launches=counts["orbital_head"], launches_large_n=large_counts["orbital_head"],
+                      shapes={name: table_numbers(row) for name, row in orbital_rows.items()}))
     print(smi, flush=True)
     emit(kernels=table)
     emit(ok=True, device={"platform": "gpu", "kind": name, "count": torch.cuda.device_count()})

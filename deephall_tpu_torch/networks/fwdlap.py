@@ -3,8 +3,9 @@
 Port of the standard tower of ``deephall_tpu/networks/fwdlap.py:
 psiformer_logpsi_jet``: it mirrors ``networks/psiformer.py`` op for op but
 propagates second-order jets (:mod:`deephall_tpu_torch.ops.fwdlap`) through one
-forward pass.  The jet LayerNorm and jet attention go to the hand-written
-kernels for CUDA tensors and to their plain versions for CPU tensors.
+forward pass.  The jet LayerNorm, the jet attention and the full orbital head
+(:mod:`deephall_tpu_torch.ops.orbital_head`) go to the hand-written kernels
+for CUDA tensors and to their plain versions for CPU tensors.
 
 The input functions (features, monopole envelope, Jastrow) are seeded with
 closed-form first and second derivatives along the seed curves, where the
@@ -26,7 +27,7 @@ from deephall_tpu_torch import tracing
 from deephall_tpu_torch.config import OrbitalType
 from deephall_tpu_torch.networks.blocks import envelope_exponents, jastrow_pairs
 from deephall_tpu_torch.networks.psiformer import Psiformer, spin_values
-from deephall_tpu_torch.ops import fwdlap, jet_attention, jet_layernorm
+from deephall_tpu_torch.ops import fwdlap, jet_attention, jet_layernorm, orbital_head
 from deephall_tpu_torch.ops.fwdlap import Jet
 from deephall_tpu_torch.utils import constant
 from deephall_tpu_torch.weights import param_tree
@@ -187,17 +188,22 @@ def _featured_orbitals(p: dict, t: Jet, nspins) -> Jet:
 
 
 ORBITAL_GROUP_BYTES = 4 * 2**30
-"""The most bytes of the orbital head's output jet made at once: the jet of
+"""The most bytes of the orbital head's buffers made at once, walkers going
+through in groups of at most this many bytes, each counted as
+``orbitals.group`` in the block record when there are several.
+
+It was set for the materialised route (:func:`_featured_orbitals`, then the
+envelope ``einsum``; the sparse orbitals' and ``kernels=False``'s): its jet of
 ``[*B, N, 2Q+1, N, K]`` complex features takes ``P (2Q+1) N^2 K`` complex
 numbers a walker (28.9 GB at N=10, 2Q=27, 16 determinants, batch 3360 and
-24 planes), and its contraction with the envelope copies the tangents once
-more, so the walkers go through in groups of at most this many bytes, each
-counted as ``orbitals.group`` in the block record when there are several.
+24 planes), and the contraction copies the tangents once more.  On an H100 at
+that size the local energy took 281-282 ms in 2, 3, 4 or 7 groups, peaking at
+29.0, 20.1, 15.7 and 10.0 GB, and 267 ms at 55.7 GB in one: past the first
+split the count costs no time, so the budget keeps the peak small.
 
-On an H100 at that size the local energy took 281-282 ms in 2, 3, 4 or 7
-groups, peaking at 29.0, 20.1, 15.7 and 10.0 GB, and 267 ms at 55.7 GB in
-one: past the first split the count costs no time, so the budget keeps the
-peak small."""
+The fused route (:func:`orbital_head.orbital_matrices_jet`) makes only the
+orbital matrices' jet and its side planes (``orbital_head.walker_bytes``),
+1.4 GB in that cell, so it takes every walker of every cell in one group."""
 
 
 def orbital_groups(batch: int, walker_bytes: int) -> list[slice]:
@@ -217,12 +223,19 @@ def _cat_walkers(parts: list[Jet]) -> Jet:
     return Jet(*(torch.cat(fields, dim=axis) for fields, axis in zip(zip(*parts), (0, 1, 0, 1))))
 
 
-def _orbital_matrices(model: Psiformer, p: dict, piece: list) -> Jet:
+def _orbital_matrices(model: Psiformer, p: dict, piece: list, fused: bool) -> Jet:
     """Jet of the orbital matrices ``[*B, nd, N, ne]`` from ``piece = [h, env]``,
     the tower's output jet and the envelope's.  ``piece`` is emptied, so that
-    the tower's jet is freed once projected when no one else holds it."""
+    the tower's jet is freed once projected when no one else holds it.
+
+    ``fused`` (full orbitals) takes :func:`orbital_head.orbital_matrices_jet`:
+    the kernel for CUDA tensors, its plain version for CPU tensors.  Otherwise
+    the feature jet is materialised and contracted with the envelope by
+    ``fwdlap.bilinear``."""
     h, env = piece
     piece.clear()
+    if fused:
+        return orbital_head.orbital_matrices_jet(p["featured_orbitals"], h, env, model.nspins)
     orbitals = _featured_orbitals(p["featured_orbitals"], h, model.nspins)
     del h
     if model.orbital_type == OrbitalType.sparse:
@@ -248,10 +261,12 @@ def psiformer_logpsi_jet(
         model: the Psiformer (its parameters are read, not differentiated).
         data: ``[*B, N, 2]`` configurations.
         compute_l2: also carry the x/y L^2 directions (E = 3 instead of 1).
-        kernels: route the jet LayerNorm and attention through their wrappers,
-            which launch the hand-written kernels for CUDA tensors.  ``False``
-            calls the plain versions on any device, to hold the kernel path
-            against the plain path end to end.
+        kernels: route the jet LayerNorm, the attention and (with full
+            orbitals) the orbital head through their wrappers, which launch
+            the hand-written kernels for CUDA tensors.  ``False`` calls the
+            plain versions of the first two and the materialised orbital head
+            on any device, to hold the kernel path against the plain path end
+            to end.
 
     Returns:
         Scalar-per-walker :class:`Jet` of ``log psi'`` (the module docstring)
@@ -291,7 +306,15 @@ def psiformer_logpsi_jet(
     with tracing.span("orbitals"):
         nelec = sum(model.nspins)
         planes = h.j.shape[0] + h.d.shape[0] + 2
-        per_walker = planes * nelec**2 * (model.flux + 1) * model.ndets * 2 * h.x.element_size()
+        fused = kernels and model.orbital_type == OrbitalType.full
+        if fused:
+            per_walker = orbital_head.walker_bytes(planes, extras, nelec, model.ndets,
+                                                   h.x.element_size())
+            if h.x.device.type == "cuda":
+                tracing.count("orbitals.fused")
+        else:
+            per_walker = (planes * nelec**2 * (model.flux + 1) * model.ndets * 2
+                          * h.x.element_size())
         groups = orbital_groups(h.x.shape[0], per_walker)
         pieces = ([[h, env]] if len(groups) == 1
                   else [[_walkers(h, rows), _walkers(env, rows)] for rows in groups])
@@ -300,7 +323,7 @@ def psiformer_logpsi_jet(
         for piece in pieces:
             if len(pieces) > 1:
                 tracing.count("orbitals.group")
-            parts.append(_orbital_matrices(model, p["Orbitals_0"], piece))
+            parts.append(_orbital_matrices(model, p["Orbitals_0"], piece, fused))
         phi_jet = parts[0] if len(parts) == 1 else _cat_walkers(parts)
         del parts
         logdet = fwdlap.logsumdet_jet(phi_jet)
