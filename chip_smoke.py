@@ -20,8 +20,7 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
    same inputs, timed in turns; then phase ``orbital_head``: the orbital
    head's kernel against its plain version at the three benchmark
    configurations' shapes (N=6 in both modes, N=10 with 1 and 16
-   determinants), with its time, the plain version's, the materialised
-   route's it replaced (``library_ms``) and its bound;
+   determinants), with its time, the plain version's and its bound;
 4. slice: the inference CLI on the converged N=6 checkpoint
    (``artifacts/prod_r4``), 20 iterations at batch 3360 with L^2 on and the
    bf16 sweep; the mean energy must lie within 0.005 of 6.8681, each
@@ -597,12 +596,7 @@ ORBITAL_SHAPES = (("N6C15E3", 6, 15, 1, 3), ("N6C13E1", 6, 15, 1, 1),
 def orbital_head_rows(device, rates, nelec: int, flux: int, ndet: int, e: int) -> dict:
     """The orbital head's kernel against its plain version on random inputs of
     one shape (the tower jet, the envelope's jet at random walkers, the head's
-    weights), with its time, the plain version's, the materialised route's it
-    replaced (the complex cuBLAS GEMM and the envelope ``einsum`` in walker
-    groups, ``kernels=False``'s) and its bound."""
-    from types import SimpleNamespace
-
-    from deephall_tpu_torch.config import OrbitalType
+    weights), with its time, the plain version's and its bound."""
     from deephall_tpu_torch.networks import fwdlap as network_jet
     from deephall_tpu_torch.ops import fwdlap
     from deephall_tpu_torch.ops import orbital_head as oh
@@ -633,16 +627,6 @@ def orbital_head_rows(device, rates, nelec: int, flux: int, ndet: int, e: int) -
     err = compare(f"orbital_head {nelec, ndet, e}", tuple(got),
                   tuple(oh.orbital_matrices_plain(p, h, env, spins)), KERNEL_TOL)
     del got
-    model = SimpleNamespace(nspins=spins, orbital_type=OrbitalType.full)
-    walker = planes * nelec**2 * harmonics * ndet * 8  # the feature jet, complex64
-
-    def materialised():
-        parts = [network_jet._orbital_matrices(
-                     model, {"featured_orbitals": p},
-                     [network_jet._walkers(h, rows), network_jet._walkers(env, rows)], False)
-                 for rows in network_jet.orbital_groups(BATCH, walker)]
-        return parts[0] if len(parts) == 1 else network_jet._cat_walkers(parts)
-
     rows = planes * BATCH * nelec
     product_flops = 2 * rows * FEAT * 2 * harmonics * pairs
     contraction_flops = 8 * harmonics * BATCH * nelec * pairs * (planes + oh.side_planes(e))
@@ -651,10 +635,9 @@ def orbital_head_rows(device, rates, nelec: int, flux: int, ndet: int, e: int) -
     least = bound(nbytes, contraction_flops, rates, product_flops)
     plan = oh.column_plan(harmonics, pairs)
     row = against(dict(
-        **err, plan=plan._asdict(), groups=len(network_jet.orbital_groups(BATCH, walker)),
+        **err, plan=plan._asdict(),
         ms=cuda_ms(lambda: oh.orbital_matrices_jet(p, h, env, spins)),
         plain_ms=cuda_ms(lambda: oh.orbital_matrices_plain(p, h, env, spins), reps=3),
-        library_ms=cuda_ms(materialised, reps=3, warmup=1),
         bound_ms=least[0], bound_by=least[1],
     ))
     torch.cuda.empty_cache()
@@ -663,7 +646,7 @@ def orbital_head_rows(device, rates, nelec: int, flux: int, ndet: int, e: int) -
 
 def phase_orbital_head(device, rates) -> dict:
     """The orbital head's kernel at the benchmark's three configurations: its
-    rows, keyed by shape; ``library_ms`` is the materialised route it replaced."""
+    rows, keyed by shape."""
     results = {}
     for name, nelec, flux, ndet, e in ORBITAL_SHAPES:
         results[name] = orbital_head_rows(device, rates, nelec, flux, ndet, e)
@@ -2650,7 +2633,7 @@ def main() -> int:
     # to XLA): its rows at the three configurations, its launches in phase large_n.
     table.append(dict(name="orbital_head_jet", route="cuda",
                       source="deephall_tpu_torch/csrc/orbital_head.cu",
-                      replaces="deephall_tpu/networks/fwdlap.py:_featured_orbitals (XLA)",
+                      replaces="deephall_tpu/networks/fwdlap.py:psiformer_logpsi_jet's orbital head (XLA)",
                       launches=counts["orbital_head"], launches_large_n=large_counts["orbital_head"],
                       shapes={name: table_numbers(row) for name, row in orbital_rows.items()}))
     print(smi, flush=True)

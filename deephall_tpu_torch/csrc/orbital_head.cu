@@ -1,13 +1,11 @@
 // The orbital head's jet: projection, envelope contraction, one kernel, for sm_90a.
 //
 // Replaces no Pallas kernel: the JAX package leaves the orbital head to XLA
-// (deephall_tpu/networks/fwdlap.py:_featured_orbitals, then bm_bilinear with
-// the envelope).  The port ran it as a complex cuBLAS GEMM of the tower jet
-// cast to complex (half its products multiply exact zeros) into a feature jet
+// (deephall_tpu/networks/fwdlap.py:psiformer_logpsi_jet: the complex
+// projection, then bm_bilinear with the envelope), which writes a feature jet
 // of P (2Q+1) N^2 K complex numbers a walker, 28.9 GB at N = 10, 2Q = 27,
-// 16 determinants and batch 3360, followed by three dense einsum passes of
-// fwdlap.bilinear over it.  This kernel computes the orbital matrices' jet
-// directly, each matrix transposed ([P, B, K, N, N] with the electron last,
+// 16 determinants and batch 3360.  This kernel computes the orbital matrices'
+// jet directly, each matrix transposed ([P, B, K, N, N] with the electron last,
 // so that the lanes of consecutive rows store consecutive values), and the
 // feature jet never reaches device memory.
 //

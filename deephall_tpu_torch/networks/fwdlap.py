@@ -3,9 +3,10 @@
 Port of the standard tower of ``deephall_tpu/networks/fwdlap.py:
 psiformer_logpsi_jet``: it mirrors ``networks/psiformer.py`` op for op but
 propagates second-order jets (:mod:`deephall_tpu_torch.ops.fwdlap`) through one
-forward pass.  The jet LayerNorm, the jet attention and the full orbital head
-(:mod:`deephall_tpu_torch.ops.orbital_head`) go to the hand-written kernels
-for CUDA tensors and to their plain versions for CPU tensors.
+forward pass.  The jet LayerNorm, the jet attention and the orbital head
+(:mod:`deephall_tpu_torch.ops.orbital_head`; the sparse orbitals as a full
+head, :func:`full_head`) go to the hand-written kernels for CUDA tensors and
+to their plain versions for CPU tensors.
 
 The input functions (features, monopole envelope, Jastrow) are seeded with
 closed-form first and second derivatives along the seed curves, where the
@@ -159,97 +160,29 @@ def _dense_planes(p: dict, t: Jet) -> Jet:
     return planes
 
 
-def _featured_orbitals(p: dict, t: Jet, nspins) -> Jet:
-    """Per-spin-sector complex orbital projections ``[*B, N, F, ne, nd]``."""
-    sectors = []
-    index = 0
-    for lo, hi in ((0, nspins[0]), (nspins[0], nspins[0] + nspins[1])):
-        if hi == lo:
-            continue
-        wr, wi = p[f"DenseGeneral_{index}"], p[f"DenseGeneral_{index + 1}"]
-        index += 2
-        kernel = torch.complex(wr["kernel"], wi["kernel"])
-        feat_shape = kernel.shape[1:]
-        kernel2d = kernel.reshape(kernel.shape[0], -1)
-        bias = torch.complex(wr["bias"], wi["bias"])
-        h_alpha = fwdlap.linear(lambda v, lo=lo, hi=hi: v[..., lo:hi, :], t)
-        sectors.append(
-            fwdlap.linear(
-                lambda v, k=kernel2d, fs=feat_shape: (v.to(k.dtype) @ k).reshape(
-                    *v.shape[:-1], *fs
-                ),
-                h_alpha,
-                bias=bias,
-            )
-        )
-    if len(sectors) == 1:
-        return sectors[0]
-    return Jet(*(torch.cat(parts, dim=-4) for parts in zip(*sectors)))
+def full_head(model: Psiformer, p: dict) -> dict:
+    """The head's parameters ``p`` (``Orbitals_0``) as a full-orbital head's:
+    for each spin sector a real and an imaginary ``DenseGeneral`` with kernel
+    ``[D, 2Q+1, N, K]`` and bias ``[2Q+1, N, K]``.
 
+    Full orbitals are that already.  The sparse orbitals lift eight features
+    ``h W + b`` to the 2Q+1 harmonics by the real ``lll_weight`` ``(L, c)``:
+    ``(h W + b) L + c = h (W L) + (b L + c)``, with ``c`` in the real parts'
+    bias only, as the reference adds the real bias to the complex features."""
+    if model.orbital_type == OrbitalType.full:
+        return p["featured_orbitals"]
+    lll, c = p["lll_weight"]["kernel"], p["lll_weight"]["bias"]
+    dense = p["featured_orbitals"]
 
-ORBITAL_GROUP_BYTES = 4 * 2**30
-"""The most bytes of the orbital head's buffers made at once, walkers going
-through in groups of at most this many bytes, each counted as
-``orbitals.group`` in the block record when there are several.
+    def lifted(d: dict, bias: torch.Tensor | float) -> dict:
+        return {"kernel": torch.einsum("dfnk,fm->dmnk", d["kernel"], lll),
+                "bias": torch.einsum("fnk,fm->mnk", d["bias"], lll) + bias}
 
-It was set for the materialised route (:func:`_featured_orbitals`, then the
-envelope ``einsum``; the sparse orbitals' and ``kernels=False``'s): its jet of
-``[*B, N, 2Q+1, N, K]`` complex features takes ``P (2Q+1) N^2 K`` complex
-numbers a walker (28.9 GB at N=10, 2Q=27, 16 determinants, batch 3360 and
-24 planes), and the contraction copies the tangents once more.  On an H100 at
-that size the local energy took 281-282 ms in 2, 3, 4 or 7 groups, peaking at
-29.0, 20.1, 15.7 and 10.0 GB, and 267 ms at 55.7 GB in one: past the first
-split the count costs no time, so the budget keeps the peak small.
-
-The fused route (:func:`orbital_head.orbital_matrices_jet`) makes only the
-orbital matrices' jet and its side planes (``orbital_head.walker_bytes``),
-1.4 GB in that cell, so it takes every walker of every cell in one group."""
-
-
-def orbital_groups(batch: int, walker_bytes: int) -> list[slice]:
-    """Contiguous walker ranges, as few and as even as keep each group within
-    :data:`ORBITAL_GROUP_BYTES`; one group of every walker when they fit."""
-    count = max(1, -(-batch * walker_bytes // ORBITAL_GROUP_BYTES))
-    size = -(-batch // count)
-    return [slice(start, min(start + size, batch)) for start in range(0, batch, size)]
-
-
-def _walkers(t: Jet, rows: slice) -> Jet:
-    """The jet of the walkers ``rows`` (the first batch axis of every field): views."""
-    return Jet(t.x[rows], t.j[:, rows], t.l[rows], t.d[:, rows])
-
-
-def _cat_walkers(parts: list[Jet]) -> Jet:
-    return Jet(*(torch.cat(fields, dim=axis) for fields, axis in zip(zip(*parts), (0, 1, 0, 1))))
-
-
-def _orbital_matrices(model: Psiformer, p: dict, piece: list, fused: bool) -> Jet:
-    """Jet of the orbital matrices ``[*B, nd, N, ne]`` from ``piece = [h, env]``,
-    the tower's output jet and the envelope's.  ``piece`` is emptied, so that
-    the tower's jet is freed once projected when no one else holds it.
-
-    ``fused`` (full orbitals) takes :func:`orbital_head.orbital_matrices_jet`:
-    the kernel for CUDA tensors, its plain version for CPU tensors.  Otherwise
-    the feature jet is materialised and contracted with the envelope by
-    ``fwdlap.bilinear``."""
-    h, env = piece
-    piece.clear()
-    if fused:
-        return orbital_head.orbital_matrices_jet(p["featured_orbitals"], h, env, model.nspins)
-    orbitals = _featured_orbitals(p["featured_orbitals"], h, model.nspins)
-    del h
-    if model.orbital_type == OrbitalType.sparse:
-        lll = p["lll_weight"]
-        kernel = lll["kernel"].to(orbitals.x.dtype)
-        orbitals = fwdlap.linear(
-            lambda v: torch.movedim(v, -3, -1) @ kernel, orbitals, bias=lll["bias"]
-        )  # [*B, N, ne, nd, n_orb]
-        orbitals = fwdlap.linear(lambda v: torch.movedim(v, -1, -3), orbitals)
-
-    contracted = fwdlap.bilinear(
-        lambda o, e: torch.einsum("...nfed,...nf->...ned", o, e), orbitals, env
-    )
-    return fwdlap.linear(lambda v: torch.movedim(v, -1, -3), contracted)
+    head = {}
+    for real, imaginary in orbital_head.dense_pairs(dense):
+        head[real] = lifted(dense[real], c[:, None, None])
+        head[imaginary] = lifted(dense[imaginary], 0.0)
+    return head
 
 
 def psiformer_logpsi_jet(
@@ -261,12 +194,10 @@ def psiformer_logpsi_jet(
         model: the Psiformer (its parameters are read, not differentiated).
         data: ``[*B, N, 2]`` configurations.
         compute_l2: also carry the x/y L^2 directions (E = 3 instead of 1).
-        kernels: route the jet LayerNorm, the attention and (with full
-            orbitals) the orbital head through their wrappers, which launch
-            the hand-written kernels for CUDA tensors.  ``False`` calls the
-            plain versions of the first two and the materialised orbital head
-            on any device, to hold the kernel path against the plain path end
-            to end.
+        kernels: route the jet LayerNorm, the attention and the orbital head
+            through their wrappers, which launch the hand-written kernels for
+            CUDA tensors.  ``False`` calls their plain versions on any device,
+            to hold the kernel path against the plain path end to end.
 
     Returns:
         Scalar-per-walker :class:`Jet` of ``log psi'`` (the module docstring)
@@ -304,27 +235,8 @@ def psiformer_logpsi_jet(
     )
     # The orbital head, the envelope contraction and the determinants.
     with tracing.span("orbitals"):
-        nelec = sum(model.nspins)
-        planes = h.j.shape[0] + h.d.shape[0] + 2
-        fused = kernels and model.orbital_type == OrbitalType.full
-        if fused:
-            per_walker = orbital_head.walker_bytes(planes, extras, nelec, model.ndets,
-                                                   h.x.element_size())
-            if h.x.device.type == "cuda":
-                tracing.count("orbitals.fused")
-        else:
-            per_walker = (planes * nelec**2 * (model.flux + 1) * model.ndets * 2
-                          * h.x.element_size())
-        groups = orbital_groups(h.x.shape[0], per_walker)
-        pieces = ([[h, env]] if len(groups) == 1
-                  else [[_walkers(h, rows), _walkers(env, rows)] for rows in groups])
-        del h
-        parts = []
-        for piece in pieces:
-            if len(pieces) > 1:
-                tracing.count("orbitals.group")
-            parts.append(_orbital_matrices(model, p["Orbitals_0"], piece, fused))
-        phi_jet = parts[0] if len(parts) == 1 else _cat_walkers(parts)
-        del parts
+        head = orbital_head.orbital_matrices_jet if kernels else orbital_head.orbital_matrices_plain
+        phi_jet = head(full_head(model, p["Orbitals_0"]), h, env, model.nspins)
+        del h, env
         logdet = fwdlap.logsumdet_jet(phi_jet)
     return fwdlap.add(logdet, jastrow)

@@ -4,11 +4,10 @@ From the tower's output jet ``h`` (``x: [B, N, D]``, planes ``P = C + E + 2``)
 and the envelope's jet ``env`` (``x: [B, N, 2Q+1]`` complex) this computes the
 jet of the orbital matrices ``[B, K, N, N]`` (K determinants): the head's
 complex projection ``o = h W + b`` (``W: [D, 2Q+1, N, K]``), contracted over
-the harmonics with the envelope by ``fwdlap.bilinear``'s rule.  The
-materialised route (``networks/fwdlap.py:_featured_orbitals``, then
-``fwdlap.bilinear`` with an ``einsum``) writes the feature jet of
-``P (2Q+1) N^2 K`` complex numbers a walker, 28.9 GB at N = 10, 2Q = 27,
-16 determinants and batch 3360; here it never reaches device memory.
+the harmonics with the envelope by ``fwdlap.bilinear``'s rule.  The feature
+jet, ``P (2Q+1) N^2 K`` complex numbers a walker (28.9 GB at N = 10,
+2Q = 27, 16 determinants and batch 3360), is never written whole: the kernel
+keeps it on chip, and the plain version makes one plane of it at a time.
 
 ``csrc/orbital_head.cu:orbital_head_jet_kernel`` multiplies each plane's rows
 by the kernel laid out as one real ``[D, 2F]`` matrix a (orbital,
@@ -27,10 +26,14 @@ fixed order: the primal's terms, direction ``2n``'s and the extras' cross
 terms, direction ``2n + 1``'s.
 
 :func:`orbital_matrices_jet` launches the kernel for CUDA tensors (one launch
-a spin sector, then the finishing pass) and raises where it cannot; for CPU
-tensors it runs :func:`orbital_matrices_plain`, the same sums in the same
-order, plane by plane.  ``orbital_matrices_jet.launches`` counts the calls that launched the
-kernel.
+a spin sector, then the finishing pass).  Where no column tile holds a pair's
+harmonics (2Q+1 > :data:`MAX_HARMONICS`), the harmonics go through in
+consecutive ranges of at most that many, a launch of the kernel each, and
+their matrices are added: every term is a sum over the harmonics.  CPU
+tensors take :func:`orbital_matrices_plain`, the same sums in the same order,
+plane by plane.  Each call on the card is counted in
+``orbital_matrices_jet.launches`` and as ``orbitals.fused`` in the open block
+record (:func:`deephall_tpu_torch.tracing.count`).
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from typing import NamedTuple
 
 import torch
 
+from deephall_tpu_torch import tracing
 from deephall_tpu_torch.ops._build import check, function, require, stream
 from deephall_tpu_torch.ops.fwdlap import Jet
 from deephall_tpu_torch.ops.jet_attention import packed_planes, tf32_round
@@ -122,19 +126,49 @@ def side_planes(extras: int) -> int:
     return 5 + 3 * extras
 
 
-def walker_bytes(planes: int, extras: int, nelec: int, ndet: int, element_size: int) -> int:
-    """Bytes a walker of the fused route's buffers, the orbital matrices' jet
-    and the side planes, complex of ``element_size``-byte parts."""
-    return (planes + side_planes(extras)) * ndet * nelec**2 * 2 * element_size
+def dense_pairs(p: dict) -> list[tuple[str, str]]:
+    """The names of the head's ``(real, imaginary)`` ``DenseGeneral`` pairs,
+    one a spin sector that has electrons, in the sectors' order."""
+    return [(f"DenseGeneral_{i}", f"DenseGeneral_{i + 1}") for i in range(0, len(p), 2)]
 
 
 def sectors(p: dict, nspins):
     """``(lo, hi, real, imaginary)`` of each spin sector's ``DenseGeneral`` pair."""
-    index = 0
-    for lo, hi in ((0, nspins[0]), (nspins[0], nspins[0] + nspins[1])):
-        if hi > lo:
-            yield lo, hi, p[f"DenseGeneral_{index}"], p[f"DenseGeneral_{index + 1}"]
-            index += 2
+    bounds = [(lo, hi) for lo, hi in ((0, nspins[0]), (nspins[0], sum(nspins))) if hi > lo]
+    for (lo, hi), (real, imaginary) in zip(bounds, dense_pairs(p)):
+        yield lo, hi, p[real], p[imaginary]
+
+
+def harmonic_ranges(harmonics: int) -> list[tuple[int, int]]:
+    """The fewest consecutive, even ranges of the harmonics that each fit a
+    column tile (at most :data:`MAX_HARMONICS`): one range of all of them
+    when they fit."""
+    count = max(1, -(-harmonics // MAX_HARMONICS))
+    bounds = [i * harmonics // count for i in range(count + 1)]
+    return list(zip(bounds, bounds[1:]))
+
+
+def harmonic_slice(dense: dict, f0: int, f1: int) -> dict:
+    """A ``DenseGeneral``'s harmonics ``f0`` to ``f1``: views."""
+    return {"kernel": dense["kernel"][:, f0:f1], "bias": dense["bias"][f0:f1]}
+
+
+def _one_batch_axis(fn, p: dict, h: Jet, env: Jet, nspins) -> Jet:
+    """``fn`` on ``h`` and ``env`` with their batch axes flattened into one,
+    the batch axes restored in its result."""
+    lead = h.x.shape[:-2]
+
+    def flat(t: Jet) -> Jet:
+        return Jet(t.x.reshape(-1, *t.x.shape[-2:]),
+                   t.j.reshape(t.j.shape[0], -1, *t.j.shape[-2:]),
+                   t.l.reshape(-1, *t.l.shape[-2:]),
+                   t.d.reshape(t.d.shape[0], -1, *t.d.shape[-2:]))
+
+    out = fn(p, flat(h), flat(env), nspins)
+    return Jet(out.x.reshape(*lead, *out.x.shape[1:]),
+               out.j.reshape(out.j.shape[0], *lead, *out.j.shape[2:]),
+               out.l.reshape(*lead, *out.l.shape[1:]),
+               out.d.reshape(out.d.shape[0], *lead, *out.d.shape[2:]))
 
 
 def orbital_matrices_plain(p: dict, h: Jet, env: Jet, nspins) -> Jet:
@@ -152,7 +186,11 @@ def orbital_matrices_plain(p: dict, h: Jet, env: Jet, nspins) -> Jet:
         h: the tower's output jet, ``x: [B, N, D]``.
         env: the envelope's jet, ``x: [B, N, 2Q+1]`` complex.
         nspins: the electrons of each spin.
+
+    Batch axes other than one are flattened into one for the call.
     """
+    if h.x.dim() != 3:
+        return _one_batch_axis(orbital_matrices_plain, p, h, env, nspins)
     c, e = h.j.shape[0], h.d.shape[0]
     lap = c - e
     batch, nelec, _ = h.x.shape
@@ -228,59 +266,71 @@ def _check(h: Jet, env: Jet, nelec: int) -> None:
         raise ValueError(f"feature width {depth}: the kernel needs D % {DEPTH_STEP} == 0")
 
 
-def _one_batch_axis(t: Jet) -> Jet:
-    return Jet(t.x.reshape(-1, *t.x.shape[-2:]), t.j.reshape(t.j.shape[0], -1, *t.j.shape[-2:]),
-               t.l.reshape(-1, *t.l.shape[-2:]), t.d.reshape(t.d.shape[0], -1, *t.d.shape[-2:]))
-
-
-def orbital_matrices_jet(p: dict, h: Jet, env: Jet, nspins) -> Jet:
-    """The jet of the orbital matrices ``[B, K, N, N]`` (complex; planes in the
-    jet's order x, j, l, d), by :func:`orbital_matrices_plain`'s arguments.
-    CPU tensors take the plain version; CUDA tensors the kernel, or a
-    ``TypeError`` / ``ValueError`` naming what it does not take, and then the
-    fields are views of one ``[P, B, K, N, N]`` buffer that holds each matrix
-    transposed.  Batch axes other than one are flattened into one for the
-    call."""
-    lead = h.x.shape[:-2]
-    if len(lead) != 1:
-        out = orbital_matrices_jet(p, _one_batch_axis(h), _one_batch_axis(env), nspins)
-        return Jet(out.x.reshape(*lead, *out.x.shape[1:]),
-                   out.j.reshape(out.j.shape[0], *lead, *out.j.shape[2:]),
-                   out.l.reshape(*lead, *out.l.shape[1:]),
-                   out.d.reshape(out.d.shape[0], *lead, *out.d.shape[2:]))
-    if h.x.device.type == "cpu":
-        return orbital_matrices_plain(p, h, env, nspins)
-    device = h.x.device
-    nelec = sum(nspins)
-    env = Jet(*(v.contiguous() for v in env))
-    _check(h, env, nelec)
-    c, e = h.j.shape[0], h.d.shape[0]
-    planes = c + e + 2
-    batch, _, depth = h.x.shape
-    harmonics = env.x.shape[-1]
-    stacked = packed_planes(h)
-    if stacked is None:
-        stacked = torch.cat([h.x[None], h.j, h.l[None], h.d], dim=0)
-    columns = [(lo, hi, split_columns(wr, wi)) for lo, hi, wr, wi in sectors(p, nspins)]
-    ndet = p["DenseGeneral_0"]["kernel"].shape[-1]
-    # Each matrix transposed (the electron last): the lanes of consecutive rows
-    # store consecutive values.
-    out = torch.empty((planes, batch, ndet, nelec, nelec), dtype=torch.complex64, device=device)
-    side = torch.empty((side_planes(e), *out.shape[1:]), dtype=torch.complex64, device=device)
+def _launch(columns: list, stacked: torch.Tensor, env: Jet, c: int, e: int,
+            out: torch.Tensor, side: torch.Tensor) -> None:
+    """The kernel's launches into ``out`` (``[P, B, K, N, N]``, each matrix
+    transposed), one for each spin sector's ``(lo, hi, HeadColumns)``, then
+    the finishing pass."""
+    device = stacked.device
+    _, batch, nelec, depth = stacked.shape
+    ndet = out.shape[2]
     launch = function("orbital_head", "orbital_head_jet_f32", _ARGTYPES)
     for lo, hi, cols in columns:
         plan = cols.plan
         status = launch(
             stacked.data_ptr(), cols.hi.data_ptr(), cols.lo.data_ptr(), cols.bias.data_ptr(),
             *(v.data_ptr() for v in env), out.data_ptr(), side.data_ptr(),
-            batch, nelec, lo, hi - lo, depth, harmonics, plan.stride, plan.per_tile,
+            batch, nelec, lo, hi - lo, depth, env.x.shape[-1], plan.stride, plan.per_tile,
             plan.width, ndet, c, e, stream(device),
         )
         check(status, "orbital_head_jet")
     status = function("orbital_head", "orbital_head_jet_finish_f32", _FINISH_ARGTYPES)(
         out.data_ptr(), side.data_ptr(), out[0].numel(), nelec, c, e, stream(device))
     check(status, "orbital_head_jet_finish")
+
+
+def orbital_matrices_jet(p: dict, h: Jet, env: Jet, nspins) -> Jet:
+    """The jet of the orbital matrices ``[B, K, N, N]`` (complex; planes in the
+    jet's order x, j, l, d), by :func:`orbital_matrices_plain`'s arguments.
+    CPU tensors take the plain version.  CUDA tensors take the kernel, and
+    then the fields are views of one ``[P, B, K, N, N]`` buffer that holds
+    each matrix transposed; more than :data:`MAX_HARMONICS` harmonics take a
+    launch for each of :func:`harmonic_ranges`, added into that buffer; what
+    the kernel does not take raises a ``TypeError`` / ``ValueError`` naming
+    it.  Batch axes other than one are flattened into one for the call."""
+    if h.x.device.type == "cpu":
+        return orbital_matrices_plain(p, h, env, nspins)
+    if h.x.dim() != 3:
+        return _one_batch_axis(orbital_matrices_jet, p, h, env, nspins)
+    device = h.x.device
+    nelec = sum(nspins)
+    env = Jet(*(v.contiguous() for v in env))
+    _check(h, env, nelec)
+    c, e = h.j.shape[0], h.d.shape[0]
+    planes = c + e + 2
+    batch = h.x.shape[0]
+    stacked = packed_planes(h)
+    if stacked is None:
+        stacked = torch.cat([h.x[None], h.j, h.l[None], h.d], dim=0)
+    ranges = harmonic_ranges(env.x.shape[-1])
+    columns = [[(lo, hi, split_columns(harmonic_slice(wr, f0, f1), harmonic_slice(wi, f0, f1)))
+                for lo, hi, wr, wi in sectors(p, nspins)] for f0, f1 in ranges]
+    ndet = p["DenseGeneral_0"]["kernel"].shape[-1]
+    # Each matrix transposed (the electron last): the lanes of consecutive rows
+    # store consecutive values.
+    out = torch.empty((planes, batch, ndet, nelec, nelec), dtype=torch.complex64, device=device)
+    side = torch.empty((side_planes(e), *out.shape[1:]), dtype=torch.complex64, device=device)
+    part = out
+    for index, (f0, f1) in enumerate(ranges):
+        if index == 1:
+            part = torch.empty_like(out)
+        _launch(columns[index], stacked, Jet(*(v[..., f0:f1].contiguous() for v in env)),
+                c, e, part, side)
+        if index:
+            out += part
+    del part
     orbital_matrices_jet.launches += 1
+    tracing.count("orbitals.fused")
     out = out.transpose(-1, -2)
     return Jet(out[0], out[1 : 1 + c], out[1 + c], out[2 + c :])
 

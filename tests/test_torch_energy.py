@@ -24,9 +24,9 @@ from deephall_tpu import hamiltonian as jax_hamiltonian
 from deephall_tpu.hamiltonian import forward_laplacian_local_energy as jax_local_energy
 from deephall_tpu.networks import make_network as jax_make_network
 from deephall_tpu_torch import config
-from deephall_tpu_torch import hamiltonian, tracing
+from deephall_tpu_torch import hamiltonian
 from deephall_tpu_torch.hamiltonian import forward_laplacian_local_energy
-from deephall_tpu_torch.networks import fwdlap, make_network
+from deephall_tpu_torch.networks import make_network
 from deephall_tpu_torch.weights import load_flax
 
 torch.set_num_threads(2)
@@ -116,20 +116,14 @@ def published_depth():
     return params, data, jax_energies(PUBLISHED, params, data)
 
 
-@pytest.mark.parametrize("budget", [None, 1], ids=["one_group", "a_group_a_walker"])
-def test_published_depth_and_determinants_in_walker_groups(published_depth, budget, monkeypatch):
-    """The port's orbital head, envelope contraction and determinants in walker
-    groups (``fwdlap.orbital_groups``) and all at once, each against JAX.
+def test_published_depth_and_determinants(published_depth):
+    """The port's orbital head, envelope contraction and determinants at the
+    published depth and determinants against JAX.
 
-    With a budget of one byte every walker is its own group, 8 in all.  Both
-    packages lie within 1.3e-4 of a float64 evaluation of the port on these
-    walkers (L_z^2, of size 60), inside the module's rtol 1e-4."""
+    Both packages lie within 1.3e-4 of a float64 evaluation of the port on
+    these walkers (L_z^2, of size 60), inside the module's rtol 1e-4."""
     params, data, want = published_depth
-    if budget is not None:
-        monkeypatch.setattr(fwdlap, "ORBITAL_GROUP_BYTES", budget)
-    with tracing.block(1, "cpu"):
-        compare(PUBLISHED, params, data, want=want)
-    assert tracing.blocks()[-1].counts == ({} if budget is None else {"orbitals.group": len(data)})
+    compare(PUBLISHED, params, data, want=want)
 
 
 @pytest.mark.parametrize("interaction", ["coulomb", "harmonic"])

@@ -1,21 +1,27 @@
 """The orbital head's jet in one pass (``ops/orbital_head.py``) against the
-materialised route it replaces.
+materialised head: the whole feature jet, then the envelope contraction.
 
 On the CPU, in float64: the plain version (the kernel's sums in its order,
-the envelope's structurally zero tangents skipped) against
-``networks/fwdlap.py:_featured_orbitals`` followed by ``fwdlap.bilinear``
-with an ``einsum``, on every field of the jet, at N=6 (2Q=15) and N=10
+the envelope's structurally zero tangents skipped) against the materialised
+head (:func:`materialised`: the complex projection, then ``fwdlap.bilinear``
+with an ``einsum``), on every field of the jet, at N=6 (2Q=15) and N=10
 (2Q=27), 1 and 16 determinants, lean (E=1) and L^2 (E=3), with a bias, one
-and two spin sectors; the kernel's column layout (real and imaginary parts
-interleaved, pairs padded and tiled, the TF32 split) against the complex
-kernel; and the routing: the full orbitals take the fused route, the sparse
-orbitals and ``kernels=False`` the materialised one.
+and two spin sectors; the sparse orbitals' head composed into a full head
+(``networks/fwdlap.py:full_head``) against the materialised sparse head
+(eight features lifted by ``lll_weight``); the kernel's column layout (real
+and imaginary parts interleaved, pairs padded and tiled, the TF32 split)
+against the complex kernel; the sum over harmonic ranges that the kernel
+takes past a column tile's harmonics; and the routing: ``kernels=True``
+takes ``orbital_matrices_jet``, ``kernels=False`` the plain version, for
+full and sparse orbitals, each the materialised head.
 
 On a card (marked ``cuda``, skipped elsewhere): the kernel against its plain
-version in float64 at the three configurations' shapes and batch 3360;
-``psiformer_logpsi_jet`` with the fused head and with the materialised one,
-both against float64, at the 16-determinant shape; the launch count and
-``orbitals.fused`` of one local energy.  Run them on the card with
+version in float64 at the three configurations' shapes and batch 3360, and
+with composed sparse heads; ``psiformer_logpsi_jet`` with the kernel's head
+and with the plain version's, both against float64, at the 16-determinant
+shape; at 65 and 131 harmonics, more than a column tile holds, the kernel
+in harmonic ranges, alone and inside ``psiformer_logpsi_jet``; the launch
+count and ``orbitals.fused`` of one local energy.  Run them on the card with
 
     python -m pytest tests/test_torch_orbital_head.py -m cuda --noconftest
 """
@@ -25,17 +31,19 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
+from types import SimpleNamespace
 
 import pytest
 import torch
 
 from deephall_tpu_torch import config, hamiltonian, tracing
+from deephall_tpu_torch.config import OrbitalType
 from deephall_tpu_torch.networks import fwdlap as network_jet
 from deephall_tpu_torch.networks import make_network
 from deephall_tpu_torch.ops import fwdlap, orbital_head
 from deephall_tpu_torch.ops.fwdlap import Jet
 from deephall_tpu_torch.ops.jet_attention import tf32_round
-from deephall_tpu_torch.weights import init_params
+from deephall_tpu_torch.weights import init_params, param_tree
 
 torch.set_num_threads(2)
 
@@ -43,13 +51,17 @@ torch.set_num_threads(2)
 # plain version in float64, relative to each field's largest value.  The
 # attention's GEMMs are held to 2e-5 the same way (tests/test_torch_kernels_cuda.py).
 KERNEL_TOL = 2e-5
-# End to end, log psi's jet with the fused head and with the materialised head
-# it replaced, both in float32, each against float64: the fused route no
-# farther from it than this many times the replaced one, field by field
-# (relative to each field's largest value), as phase ``train`` of
-# chip_smoke.py holds the kernel path's observables to 1.5 times the plain
-# path's distance.
+# End to end, log psi's jet with the kernel's head and with the plain
+# version's, both in float32, each against float64: the kernel no farther
+# from it than this many times the plain version, field by field (relative
+# to each field's largest value), as phase ``train`` of chip_smoke.py holds
+# the kernel path's observables to 1.5 times the plain path's distance.
 END_TO_END_FACTOR = 2.0
+# Two float32 evaluations of log psi's jet at N=3, 2Q=64, on the card and on
+# the CPU, in other summation orders: each field within this of its largest
+# value.  The CPU's lies within 7.2e-5 of float64 on these walkers (the
+# Laplacian; 3.4e-5 the tangents), so two such are within twice that.
+CARD_TO_CPU_TOL = 2e-4
 
 
 def head_params(gen, depth, harmonics, nelec, ndet, sectors, dtype=torch.float64, device="cpu"):
@@ -81,12 +93,43 @@ def jets(gen, batch, nelec, flux, depth, extras, dtype=torch.float64, device="cp
     return h, env
 
 
-def materialised(p, h, env, nspins) -> Jet:
-    """The route the kernel replaces: the feature jet, then ``fwdlap.bilinear``."""
-    orbitals = network_jet._featured_orbitals(p, h, nspins)
-    contracted = fwdlap.bilinear(
+def featured(p, h, nspins) -> Jet:
+    """The head's complex features ``[*B, N, F, ne, nd]``, each spin
+    sector's electrons through its real and imaginary ``DenseGeneral``."""
+    sectors, index, lo = [], 0, 0
+    for n in nspins:
+        if not n:
+            continue
+        wr, wi = p[f"DenseGeneral_{index}"], p[f"DenseGeneral_{index + 1}"]
+        kernel = torch.complex(wr["kernel"], wi["kernel"])
+        sectors.append(fwdlap.linear(
+            lambda v, rows=slice(lo, lo + n), k=kernel: torch.einsum(
+                "...nd,dfek->...nfek", v[..., rows, :].to(k.dtype), k),
+            h, bias=torch.complex(wr["bias"], wi["bias"])))
+        index, lo = index + 2, lo + n
+    return Jet(*(torch.cat(parts, dim=-4) for parts in zip(*sectors)))
+
+
+def contracted(orbitals: Jet, env: Jet) -> Jet:
+    """The feature jet contracted with the envelope's over the harmonics, as
+    the orbital matrices ``[*B, nd, N, ne]``."""
+    out = fwdlap.bilinear(
         lambda o, e: torch.einsum("...nfed,...nf->...ned", o, e), orbitals, env)
-    return fwdlap.linear(lambda v: torch.movedim(v, -1, -3), contracted)
+    return fwdlap.linear(lambda v: torch.movedim(v, -1, -3), out)
+
+
+def materialised(p, h, env, nspins) -> Jet:
+    """The full head with its whole feature jet made, then contracted."""
+    return contracted(featured(p, h, nspins), env)
+
+
+def materialised_sparse(p, lll, h, env, nspins) -> Jet:
+    """The sparse head so: eight features a (sector, electron, determinant),
+    lifted to the harmonics by the real ``lll_weight`` (its bias added to the
+    primal), then contracted."""
+    orbitals = fwdlap.linear(lambda v: torch.movedim(v, -3, -1) @ lll["kernel"].to(v.dtype),
+                             featured(p, h, nspins), bias=lll["bias"])
+    return contracted(fwdlap.linear(lambda v: torch.movedim(v, -1, -3), orbitals), env)
 
 
 def relative_errors(got: Jet, want: Jet) -> dict:
@@ -113,6 +156,41 @@ def test_the_plain_version_is_the_materialised_route(nspins, flux, ndet, extras)
     h, env = jets(gen, 3, nelec, flux, depth, extras)
     got = orbital_head.orbital_matrices_jet(p, h, env, nspins)
     want = materialised(p, h, env, nspins)
+    errors = relative_errors(got, want)
+    assert max(errors.values()) < 1e-13, errors
+
+
+def sparse_params(gen, depth, flux, nelec, ndet, sectors, dtype=torch.float64, device="cpu"):
+    """Random sparse head weights: eight features a pair and ``lll_weight``."""
+    p = head_params(gen, depth, 8, nelec, ndet, sectors, dtype, device)
+    lll = {"kernel": (8 ** -0.5 * torch.randn(8, flux + 1, generator=gen, dtype=dtype)).to(device),
+           "bias": (0.1 * torch.randn(flux + 1, generator=gen, dtype=dtype)).to(device)}
+    return p, lll
+
+
+def composed(p, lll) -> dict:
+    """``networks/fwdlap.py:full_head`` of a sparse head."""
+    model = SimpleNamespace(orbital_type=OrbitalType.sparse)
+    return network_jet.full_head(model, {"featured_orbitals": p, "lll_weight": lll})
+
+
+# (nspins, 2Q, determinants, extras): the sparse head, one and two spin
+# sectors, 1 to 16 determinants, lean and L^2.
+SPARSE_CASES = [((3, 0), 6, 2, 1), ((3, 0), 6, 2, 3), ((3, 2), 8, 2, 3), ((4, 0), 9, 3, 1),
+                ((2, 2), 5, 1, 1), ((6, 0), 15, 16, 1), ((6, 0), 15, 16, 3)]
+
+
+@pytest.mark.parametrize("nspins,flux,ndet,extras", SPARSE_CASES)
+def test_the_sparse_head_is_a_full_head(nspins, flux, ndet, extras):
+    """The sparse head's weights composed with ``lll_weight`` into a full
+    head's, through the plain version, against the materialised sparse head,
+    on every field of the jet in float64."""
+    gen = torch.Generator().manual_seed(sum(nspins) * 100 + flux + ndet + extras)
+    nelec, depth = sum(nspins), 32
+    p, lll = sparse_params(gen, depth, flux, nelec, ndet, sum(1 for n in nspins if n))
+    h, env = jets(gen, 3, nelec, flux, depth, extras)
+    got = orbital_head.orbital_matrices_plain(composed(p, lll), h, env, nspins)
+    want = materialised_sparse(p, lll, h, env, nspins)
     errors = relative_errors(got, want)
     assert max(errors.values()) < 1e-13, errors
 
@@ -195,47 +273,78 @@ def small_config(orbital: str, ndet: int = 2):
     return config.Config.from_dict(raw)
 
 
-@pytest.mark.parametrize("orbital,kernels,fused", [
-    ("full", True, True), ("full", False, False), ("sparse", True, False),
-    ("sparse", False, False)])
-def test_the_routes(monkeypatch, orbital, kernels, fused):
-    """Full orbitals through the kernels' wrappers take the fused route; the
-    sparse orbitals (a different layer: eight features lifted by
-    ``lll_weight``) and ``kernels=False`` the materialised one.  On the CPU
-    nothing counts as ``orbitals.fused``: no kernel ran."""
+@pytest.mark.parametrize("orbital", ["full", "sparse"])
+@pytest.mark.parametrize("kernels", [True, False])
+def test_the_routes(monkeypatch, orbital, kernels):
+    """Full and sparse orbitals alike (the sparse head composed into a full
+    one) take ``orbital_matrices_jet`` through the kernels' wrappers, once,
+    and its plain version with ``kernels=False``; either gives the
+    materialised head of the model's own parameters (for the sparse head,
+    :func:`materialised_sparse`) on the tower's and the envelope's jets.  On
+    the CPU nothing counts as ``orbitals.fused``: no kernel ran."""
     cfg = small_config(orbital)
     model = make_network(cfg.system, cfg.network)
     init_params(model, torch.Generator().manual_seed(3))
     calls = []
-    real = orbital_head.orbital_matrices_jet
 
-    def spy(*args):
-        calls.append(1)
-        return real(*args)
+    def spy(name):
+        real = getattr(orbital_head, name)
 
-    monkeypatch.setattr(orbital_head, "orbital_matrices_jet", spy)
+        def call(*args):
+            out = real(*args)
+            calls.append((name, args, out))
+            return out
+
+        monkeypatch.setattr(orbital_head, name, call)
+
+    spy("orbital_matrices_jet")
+    spy("orbital_matrices_plain")
     gen = torch.Generator().manual_seed(4)
     data = torch.stack([torch.acos(2 * torch.rand(4, 3, generator=gen) - 1),
                         2 * math.pi * torch.rand(4, 3, generator=gen)], dim=-1)
     with torch.no_grad(), tracing.block(1, "cpu"):
-        out = network_jet.psiformer_logpsi_jet(model, data, compute_l2=True, kernels=kernels)
-    assert len(calls) == int(fused)
+        network_jet.psiformer_logpsi_jet(model, data, compute_l2=True, kernels=kernels)
+    # On the CPU the wrapper calls the plain version in turn.
+    assert [name for name, _, _ in calls] == (
+        ["orbital_matrices_plain", "orbital_matrices_jet"] if kernels
+        else ["orbital_matrices_plain"])
     assert tracing.blocks()[-1].counts == {}
+    _, (_, h, env, nspins), got = calls[-1]
+    params = param_tree(model)["Orbitals_0"]
     with torch.no_grad():
-        other = network_jet.psiformer_logpsi_jet(model, data, compute_l2=True,
-                                                 kernels=not kernels)
-    for name, a, b in zip(Jet._fields, out, other):
+        want = (materialised(params["featured_orbitals"], h, env, nspins) if orbital == "full"
+                else materialised_sparse(params["featured_orbitals"], params["lll_weight"],
+                                         h, env, nspins))
+    for name, a, b in zip(Jet._fields, got, want):
         assert torch.allclose(a, b, rtol=1e-4, atol=1e-4 * float(b.abs().max())), name
 
 
-@pytest.mark.parametrize("nelec,ndet,extras,per_walker", [
-    (10, 16, 1, (24 + 8) * 16 * 100 * 8),  # the 16-determinant cell: 1.38 GB, one group
-    (6, 1, 3, (20 + 14) * 36 * 8),  # N = 6 with L^2
+@pytest.mark.parametrize("harmonics,ranges", [
+    (16, [(0, 16)]), (64, [(0, 64)]), (65, [(0, 32), (32, 65)]),
+    (131, [(0, 43), (43, 87), (87, 131)]),
 ])
-def test_the_fused_route_takes_one_group(nelec, ndet, extras, per_walker):
-    planes = 2 * nelec + 2 * extras + 2
-    assert orbital_head.walker_bytes(planes, extras, nelec, ndet, 4) == per_walker
-    assert len(network_jet.orbital_groups(3360, per_walker)) == 1
+def test_harmonic_ranges(harmonics, ranges):
+    assert orbital_head.harmonic_ranges(harmonics) == ranges
+
+
+@pytest.mark.parametrize("nspins,flux,ndet,extras", [((3, 0), 64, 2, 3), ((2, 1), 130, 1, 1)])
+def test_the_harmonics_add_up(nspins, flux, ndet, extras):
+    """Where a column tile does not hold a pair's harmonics, the kernel takes
+    :func:`orbital_head.harmonic_ranges` one launch each and adds their
+    matrices: every field of the jet, bias included, is that sum (the plain
+    version on each range, float64)."""
+    gen = torch.Generator().manual_seed(flux + extras)
+    nelec, depth = sum(nspins), 32
+    p = head_params(gen, depth, flux + 1, nelec, ndet, sum(1 for n in nspins if n))
+    h, env = jets(gen, 3, nelec, flux, depth, extras)
+    ranges = orbital_head.harmonic_ranges(flux + 1)
+    assert len(ranges) > 1
+    parts = [orbital_head.orbital_matrices_plain(
+        {name: orbital_head.harmonic_slice(dense, f0, f1) for name, dense in p.items()}, h,
+        Jet(*(v[..., f0:f1] for v in env)), nspins) for f0, f1 in ranges]
+    got = Jet(*(sum(fields) for fields in zip(*parts)))
+    errors = relative_errors(got, orbital_head.orbital_matrices_plain(p, h, env, nspins))
+    assert max(errors.values()) < 1e-13, errors
 
 
 # --- on the card ---------------------------------------------------------------
@@ -265,12 +374,85 @@ def test_the_kernel_against_its_plain_version(device, nelec, flux, ndet, extras)
     got = orbital_head.orbital_matrices_jet(p, h, env, (nelec, 0))
     torch.cuda.synchronize()
     assert orbital_head.orbital_matrices_jet.launches == before + 1
-    p64 = {k: {leaf: v.double() for leaf, v in d.items()} for k, d in p.items()}
     want = orbital_head.orbital_matrices_plain(
-        p64, Jet(*(v.double() for v in h)), Jet(*(v.to(torch.complex128) for v in env)),
+        in_float64(p), Jet(*(v.double() for v in h)), Jet(*(v.to(torch.complex128) for v in env)),
         (nelec, 0))
     errors = relative_errors(got, want)
     assert max(errors.values()) <= KERNEL_TOL, errors
+
+
+def in_float64(p: dict) -> dict:
+    return {k: {leaf: v.double() for leaf, v in d.items()} for k, d in p.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nelec,flux", [(6, 15), (10, 27)])
+def test_a_sparse_head_through_the_kernel(device, nelec, flux):
+    """Batch 3360, D = 256, 1 determinant, lean: a sparse head composed into a
+    full one (``full_head``) through the kernel in float32, against the plain
+    version in float64, every field within :data:`KERNEL_TOL`."""
+    gen = torch.Generator().manual_seed(nelec + flux)
+    p, lll = sparse_params(gen, 256, flux, nelec, 1, 1, dtype=torch.float32, device=device)
+    head = composed(p, lll)
+    h, env = jets(gen, 3360, nelec, flux, 256, 1, dtype=torch.float32, device=device)
+    before = orbital_head.orbital_matrices_jet.launches
+    got = orbital_head.orbital_matrices_jet(head, h, env, (nelec, 0))
+    torch.cuda.synchronize()
+    assert orbital_head.orbital_matrices_jet.launches == before + 1
+    want = orbital_head.orbital_matrices_plain(
+        in_float64(head), Jet(*(v.double() for v in h)),
+        Jet(*(v.to(torch.complex128) for v in env)), (nelec, 0))
+    errors = relative_errors(got, want)
+    assert max(errors.values()) <= KERNEL_TOL, errors
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nspins,flux,ndet,extras", [((3, 0), 64, 16, 1), ((2, 1), 130, 2, 3)])
+def test_the_kernel_in_harmonic_ranges(device, nspins, flux, ndet, extras):
+    """65 and 131 harmonics, more than a column tile holds: two and three
+    launches of the kernel added, batch 3360, D = 256, against the plain
+    version in float64, every field within :data:`KERNEL_TOL`."""
+    gen = torch.Generator().manual_seed(flux + extras)
+    nelec = sum(nspins)
+    p = head_params(gen, 256, flux + 1, nelec, ndet, sum(1 for n in nspins if n),
+                    dtype=torch.float32, device=device)
+    h, env = jets(gen, 3360, nelec, flux, 256, extras, dtype=torch.float32, device=device)
+    before = orbital_head.orbital_matrices_jet.launches
+    got = orbital_head.orbital_matrices_jet(p, h, env, nspins)
+    torch.cuda.synchronize()
+    assert orbital_head.orbital_matrices_jet.launches == before + 1
+    want = orbital_head.orbital_matrices_plain(
+        in_float64(p), Jet(*(v.double() for v in h)), Jet(*(v.to(torch.complex128) for v in env)),
+        nspins)
+    errors = relative_errors(got, want)
+    assert max(errors.values()) <= KERNEL_TOL, errors
+
+
+@pytest.mark.cuda
+def test_more_harmonics_than_a_tile_holds(device):
+    """N=3 at 2Q=64: 65 harmonics, more than a column tile holds, inside
+    ``psiformer_logpsi_jet`` through every other kernel: the head takes the
+    kernel in two harmonic ranges, one wrapper call counted as
+    ``orbitals.fused``, and log psi's jet lies within :data:`CARD_TO_CPU_TOL`
+    of the same model's on the CPU."""
+    raw = {"batch_size": 64, "system": {"nspins": [3, 0], "flux": 64},
+           "network": {"psiformer": {"num_layers": 1}}}
+    cfg = config.Config.from_dict(raw)
+    model = make_network(cfg.system, cfg.network)
+    init_params(model, torch.Generator().manual_seed(21))
+    gen = torch.Generator().manual_seed(22)
+    data = torch.stack([torch.acos(2 * torch.rand(64, 3, generator=gen) - 1),
+                        2 * math.pi * torch.rand(64, 3, generator=gen)], dim=-1)
+    with torch.no_grad():
+        want = network_jet.psiformer_logpsi_jet(model, data, compute_l2=True)
+        card = copy.deepcopy(model).to(device)
+        before = orbital_head.orbital_matrices_jet.launches
+        with tracing.block(1, device):
+            got = network_jet.psiformer_logpsi_jet(card, data.to(device), compute_l2=True)
+    assert orbital_head.orbital_matrices_jet.launches == before + 1
+    assert tracing.blocks()[-1].counts.get("orbitals.fused") == 1
+    errors = relative_errors(Jet(*(v.cpu() for v in got)), want)
+    assert max(errors.values()) <= CARD_TO_CPU_TOL, errors
 
 
 def l4k16(device, batch: int):
@@ -289,22 +471,21 @@ def l4k16(device, batch: int):
 @pytest.mark.cuda
 def test_log_psi_jet_through_the_kernel(device, monkeypatch):
     """The 16-determinant Psiformer at N=10, 2Q=27, batch 1680: log psi's jet
-    through every kernel with the fused head, and with the materialised head
-    it replaced (every other kernel the same), both against ``kernels=False``
-    in float64."""
+    through every kernel with the kernel's head, and with the plain version's
+    head in float32 on the card (every other kernel the same), both against
+    ``kernels=False`` in float64."""
     _, model, data = l4k16(device, 1680)
     with torch.no_grad():
         want = network_jet.psiformer_logpsi_jet(copy.deepcopy(model).double(), data.double(),
                                                 kernels=False)
         got = network_jet.psiformer_logpsi_jet(model, data, kernels=True)
-        fused = network_jet._orbital_matrices
-        monkeypatch.setattr(network_jet, "_orbital_matrices",
-                            lambda model, p, piece, _: fused(model, p, piece, False))
-        replaced = network_jet.psiformer_logpsi_jet(model, data, kernels=True)
-    kernel_errors, replaced_errors = relative_errors(got, want), relative_errors(replaced, want)
+        monkeypatch.setattr(orbital_head, "orbital_matrices_jet",
+                            orbital_head.orbital_matrices_plain)
+        plain = network_jet.psiformer_logpsi_jet(model, data, kernels=True)
+    kernel_errors, plain_errors = relative_errors(got, want), relative_errors(plain, want)
     for name in Jet._fields:
-        assert kernel_errors[name] <= END_TO_END_FACTOR * replaced_errors[name], (
-            kernel_errors, replaced_errors)
+        assert kernel_errors[name] <= END_TO_END_FACTOR * plain_errors[name], (
+            kernel_errors, plain_errors)
 
 
 @pytest.mark.cuda

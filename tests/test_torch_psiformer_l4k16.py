@@ -16,7 +16,6 @@ difference of the mathematics and not of rounding (:data:`RTOL`).
 from __future__ import annotations
 
 import copy
-import dataclasses
 import math
 import sys
 from pathlib import Path
@@ -198,33 +197,4 @@ def test_one_kfac_step_from_zero_curvature(setup, both_gradients):
         start = params[name]
         change, ref_change = p.reshape(start.shape) - start, ref_params[name] - start
         assert close(change, ref_change, RTOL * float(ref_change.abs().max())), name
-
-
-@pytest.mark.parametrize("dets", [1, DETS])
-def test_walker_groups_leave_the_jet_unchanged(setup, dets, monkeypatch):
-    """The orbital head's jet in groups of walkers (``fwdlap.orbital_groups``,
-    here 3, 3 and 2 of the 8 under a budget of three walkers' bytes) against
-    the jet of all walkers at once, the path of every jet that fits its
-    budget; each group counted as ``orbitals.group`` in the block record."""
-    from deephall_tpu_torch import tracing
-    from deephall_tpu_torch.networks import fwdlap as network_jet
-
-    cfg, _, _, _, x = setup
-    network = dataclasses.replace(
-        cfg.network, psiformer=dataclasses.replace(cfg.network.psiformer, determinants=dets))
-    model = make_network(cfg.system, network)
-    init_params(model, torch.Generator().manual_seed(19))
-    model = model.double()
-    with torch.no_grad():
-        whole = network_jet.psiformer_logpsi_jet(model, x, compute_l2=True, kernels=False)
-        planes = 2 * sum(NSPINS) + 8  # the primal, 2N + 3 tangents, the Laplacian, 3 extras
-        walker = planes * sum(NSPINS) ** 2 * (FLUX + 1) * dets * 16  # complex128
-        assert len(network_jet.orbital_groups(BATCH, walker)) == 1
-        monkeypatch.setattr(network_jet, "ORBITAL_GROUP_BYTES", 3 * walker)
-        assert [g.stop - g.start for g in network_jet.orbital_groups(BATCH, walker)] == [3, 3, 2]
-        with tracing.block(1, "cpu"):
-            grouped = network_jet.psiformer_logpsi_jet(model, x, compute_l2=True, kernels=False)
-    assert tracing.blocks()[-1].counts == {"orbitals.group": 3}
-    for name, got, want in zip(whole._fields, grouped, whole):
-        assert got.shape == want.shape and close(got, want, 1e-12), name
 
