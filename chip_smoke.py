@@ -20,7 +20,13 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
    same inputs, timed in turns; then phase ``orbital_head``: the orbital
    head's kernel against its plain version at the three benchmark
    configurations' shapes (N=6 in both modes, N=10 with 1 and 16
-   determinants), with its time, the plain version's and its bound;
+   determinants), with its time, the plain version's and its bound; then
+   phase ``kfac_gram``: KFAC's Gram-product kernel at the 16-determinant
+   head's G (33,600 x 4,480) and at an N = 6 layer's A with its bias
+   (20,160 x 256 and the ones column): exactly symmetric, within 2e-5 of the
+   plain version and no farther from float64 (Frobenius) than twice it, with
+   its time, its bound (the triangle's products as three TF32 products), the
+   plain version's time and ``torch.matmul``'s (``library_ms``);
 4. slice: the inference CLI on the converged N=6 checkpoint
    (``artifacts/prod_r4``), 20 iterations at batch 3360 with L^2 on and the
    bf16 sweep; the mean energy must lie within 0.005 of 6.8681, each
@@ -41,7 +47,8 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
    3360, L^2 on, bf16 sweep; the mean energy must lie within 0.005 of 6.8681
    with L^2 < 0.2, every step must keep ``lr^2 coeff^2 d^T F d`` within the
    norm constraint, and the launch counts must be 10 x those of one local
-   energy (no burn-in, no probe).  On the trained walkers, against a float64
+   energy (no burn-in, no probe), and the Gram-product kernel's 10 x two a
+   Kronecker block.  On the trained walkers, against a float64
    local energy: in every observable the kernel path's median walker must lie
    no farther from float64 than 1.5x the plain float32 path's, and the L^2
    batch mean no farther than max(2x the plain path's distance, 3e-5 of its
@@ -654,6 +661,62 @@ def phase_orbital_head(device, rates) -> dict:
     return results
 
 
+# Phase kfac_gram: (name, rows, columns, ones column) of KFAC's factors: the
+# 16-determinant head's G at N = 10 and an N = 6 layer's A with its bias.
+GRAM_SHAPES = (("G_K16_N10", 33600, 4480, False), ("A_bias_N6", 20160, 256, True))
+
+
+def kfac_gram_rows(device, rates, rows: int, cols: int, ones: bool) -> dict:
+    """KFAC's Gram-product kernel against its plain version (``torch.matmul``
+    in float32) and float64 on random inputs of one shape, with its time, the
+    plain version's, ``torch.matmul``'s alone and its bound."""
+    from deephall_tpu_torch.ops import kfac_gram as kg
+
+    name = f"kfac_gram {rows, cols, ones}"
+    gen = torch.Generator(device=device).manual_seed(rows + cols)
+    x = torch.randn(rows, cols, generator=gen, device=device) + 0.5
+    before = kg.gram.launches
+    got = kg.gram(x, ones)
+    if kg.gram.launches != before + 1:
+        raise AssertionError(f"{name}: the kernel did not launch")
+    if not torch.equal(got, got.T):
+        raise AssertionError(f"{name}: not exactly symmetric")
+    plain = kg.gram_plain(x, ones)
+    err = compare(name, got, plain, KERNEL_TOL)
+    exact = kg.gram_plain(x.double(), ones)
+
+    def frobenius(v):
+        return float(torch.linalg.norm(v.double() - exact) / torch.linalg.norm(exact))
+
+    err.update(frobenius_err=frobenius(got), plain_frobenius_err=frobenius(plain))
+    if not err["frobenius_err"] <= 2 * err["plain_frobenius_err"]:
+        raise AssertionError(f"{name}: farther from float64 than twice the plain version: {err}")
+    del got, plain, exact
+    n = cols + int(ones)
+    full = torch.cat([x, torch.ones((rows, 1), device=device)], -1) if ones else x
+    # The triangle's products; the ones column's sums are additions.
+    least = bound(rows * cols * 4 + n * n * 4, rows * cols * int(ones), rates,
+                  product_flops=rows * cols * (cols + 1))
+    row = against(dict(
+        **err, plan=kg.plan(rows, cols, torch.cuda.get_device_properties(device).multi_processor_count)._asdict(),
+        ms=cuda_ms(lambda: kg.gram(x, ones)),
+        plain_ms=cuda_ms(lambda: kg.gram_plain(x, ones)),
+        library_ms=cuda_ms(lambda: torch.matmul(full.T, full)),
+        bound_ms=least[0], bound_by=least[1],
+    ))
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_kfac_gram(device, rates) -> dict:
+    """KFAC's Gram-product kernel at :data:`GRAM_SHAPES`: its rows, keyed by shape."""
+    results = {}
+    for name, rows, cols, ones in GRAM_SHAPES:
+        results[name] = kfac_gram_rows(device, rates, rows, cols, ones)
+        emit(phase="kfac_gram", shape=name, **results[name])
+    return results
+
+
 def table_numbers(row: dict) -> dict:
     """``row`` for the kernel table: ``bound_by`` is ``bytes`` or ``operations`` there,
     and which operations (three TF32 products) goes to ``bound_detail``."""
@@ -1005,12 +1068,16 @@ def phase_train(workdir: Path, device) -> dict:
     if not isinstance(start.opt_state, KfacState) or int(start.opt_state.step) != RESUME_STEP:
         raise AssertionError("train: the stored KfacState did not load")
 
+    from deephall_tpu_torch.ops import kfac_gram
+
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
     wall = time.perf_counter()
+    gram_launches = kfac_gram.gram.launches
     history, warnings = train_cli(workdir / "kfac", "kfac", TRAIN_ITERATIONS)
     wall = time.perf_counter() - wall
     counts = launch_counts()
+    gram_launches = kfac_gram.gram.launches - gram_launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     last = workdir / "kfac" / f"ckpt_{RESUME_STEP + TRAIN_ITERATIONS - 1:06d}.npz"
     cfg, model, final = restored_model(last, device)
@@ -1043,6 +1110,8 @@ def phase_train(workdir: Path, device) -> dict:
         el, obs = local_energy(data)
     _, grads, inputs, dy = loss.gradient_and_capture(model, cfg.system, data, el, obs)
     specs = kfac.discover(model, sum(cfg.system.nspins))
+    # Each update forms both factors of every Kronecker block by the kernel.
+    gram_expected = TRAIN_ITERATIONS * 2 * sum(spec.kind == "kron" for spec in specs)
 
     def kfac_update():
         kfac.kfac_update(cfg.optim.kfac, specs, params, opt_state, grads, inputs, dy)
@@ -1087,6 +1156,7 @@ def phase_train(workdir: Path, device) -> dict:
         wall_s=wall,
         peak_memory_gb=peak_gb,
         launches=counts, expected_launches=expected,
+        kfac_gram_launches=gram_launches, expected_kfac_gram_launches=gram_expected,
         warnings=warnings,
         update_rel_l2=updates,
         after_training_fields=fields,
@@ -1108,6 +1178,8 @@ def phase_train(workdir: Path, device) -> dict:
         raise AssertionError("train: the parameters did not move")
     if counts != expected:
         raise AssertionError(f"train: launch counts {counts} != expected {expected}")
+    if gram_launches != gram_expected:
+        raise AssertionError(f"train: {gram_launches} Gram-product launches != {gram_expected}")
     bad = [k for k, v in fields.items()
            if not (v["kernels_vs_plain_median_dev_rel"] <= END_TO_END_TOL
                    and v["kernels_vs_float64_mean_shift_sem"] <= MEAN_SHIFT_SEM)]
@@ -1124,7 +1196,7 @@ def phase_train(workdir: Path, device) -> dict:
     if (len(adam_history) != ADAM_ITERATIONS or not np.isfinite(adam_energies).all()
             or dropped not in adam_warnings or result["adam"]["count"] != ADAM_ITERATIONS):
         raise AssertionError(f"train: Adam {result['adam']}")
-    return counts, history
+    return counts, history, gram_launches
 
 
 def sector_cli(save: Path, *dotlist: str) -> list:
@@ -2563,12 +2635,13 @@ def main() -> int:
 
     kernels = phase_kernels(device, rates)
     orbital_rows = phase_orbital_head(device, rates)
+    gram_rows = phase_kfac_gram(device, rates)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
         counts = phase_slice(Path(workdir))
         phase_slice_excited(Path(workdir))
         phase_end_to_end(device)
         pole_counts = phase_psiformer_pole(device)
-        train_counts, train_history = phase_train(Path(workdir), device)
+        train_counts, train_history, train_gram_launches = phase_train(Path(workdir), device)
         excited_counts = phase_excited(Path(workdir))
         start = time.perf_counter()
         phase_laughlin(Path(workdir), device)
@@ -2636,6 +2709,12 @@ def main() -> int:
                       replaces="deephall_tpu/networks/fwdlap.py:psiformer_logpsi_jet's orbital head (XLA)",
                       launches=counts["orbital_head"], launches_large_n=large_counts["orbital_head"],
                       shapes={name: table_numbers(row) for name, row in orbital_rows.items()}))
+    # KFAC's Gram products (no TPU kernel: the JAX package leaves a.T @ a to XLA):
+    # their rows at the two shapes, their launches in phase train's CLI run.
+    table.append(dict(name="kfac_gram", route="cuda", source="deephall_tpu_torch/csrc/kfac_gram.cu",
+                      replaces="deephall_tpu/optimizers/kfac.py:171-172's a.T @ a and g.T @ g (XLA)",
+                      launches_train=train_gram_launches,
+                      shapes={name: table_numbers(row) for name, row in gram_rows.items()}))
     print(smi, flush=True)
     emit(kernels=table)
     emit(ok=True, device={"platform": "gpu", "kind": name, "count": torch.cuda.device_count()})

@@ -16,11 +16,13 @@ Factors are EMA'd from zeros with the ``weight`` normaliser.  The update solves
 ``(sqrt(T) A + pi_A I) dW (sqrt(T) G + pi_G I) = grad`` per layer with
 pi-split damping, takes the learning rate at the step before the increment,
 and scales the step by ``min(1, sqrt(c / (lr^2 d^T F d)))``, the norm
-constraint.  Factor products and solves are ``torch.matmul`` and
-``torch.linalg.solve_ex``; parameters are updated in place, and nothing is
-read back to the host.  The orbital head's blocks (``Orbitals_0``) are
-factored and solved in the span ``orbital_factors``, once in each of
-:func:`factor_update` and :func:`precondition`.
+constraint.  Each Kronecker factor is a Gram product,
+``ops/kfac_gram.py:gram`` (the hand-written kernel on the card, the bias's
+ones column taken inside it), counted as ``kfac.factors`` in the open block
+record; the solves are ``torch.linalg.solve_ex``.  Parameters are updated in
+place, and nothing is read back to the host.  The orbital head's blocks
+(``Orbitals_0``) are factored and solved in the span ``orbital_factors``, once
+in each of :func:`factor_update` and :func:`precondition`.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import torch
 from deephall_tpu_torch import parallel, tracing
 from deephall_tpu_torch.config import OptimizerKfac
 from deephall_tpu_torch.networks.blocks import LayerNorm, kfac_capture
+from deephall_tpu_torch.ops.kfac_gram import gram
 from deephall_tpu_torch.types import CheckpointState, KfacState
 
 
@@ -77,6 +80,12 @@ def _head_in_span(specs: list[LayerSpec]):
             yield from specs[head:]
 
 
+def _factor(x: torch.Tensor, ones_column: bool = False) -> torch.Tensor:
+    """The Kronecker factor ``[x 1]^T [x 1] / rows``, counted as ``kfac.factors``."""
+    tracing.count("kfac.factors")
+    return gram(x, ones_column)
+
+
 def factor_update(specs: list[LayerSpec], inputs: dict, dy: dict) -> tuple[dict, dict]:
     """One step's curvature blocks from the captured inputs and sensitivities.
 
@@ -89,11 +98,8 @@ def factor_update(specs: list[LayerSpec], inputs: dict, dy: dict) -> tuple[dict,
         a, g = inputs[spec.path], dy[spec.path]
         a = a.real if a.is_complex() else a
         g = g.real if g.is_complex() else g
-        rows = a.shape[0]
         if spec.kind == "kron":
-            if spec.has_bias:
-                a = torch.cat([a, torch.ones((rows, 1), dtype=a.dtype, device=a.device)], -1)
-            kron[spec.path] = {"a": (a.T @ a) / rows, "g": (g.T @ g) / rows}
+            kron[spec.path] = {"a": _factor(a, spec.has_bias), "g": _factor(g)}
         else:
             a3 = a.reshape(-1, spec.repeats, a.shape[-1])
             g3 = g.reshape(-1, spec.repeats, g.shape[-1])
