@@ -18,9 +18,11 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
    one does not take), each beside a plain pass over the same bytes
    (``torch.add``), the staged one also beside the generic kernel on the
    same inputs, timed in turns; then phase ``orbital_head``: the orbital
-   head's kernel against its plain version at the three benchmark
+   head's kernel against its plain version at the four benchmark
    configurations' shapes (N=6 in both modes, N=10 with 1 and 16
-   determinants), with its time, the plain version's and its bound; then
+   determinants, N=14 at 2Q=65 in both modes), with its time, the plain
+   version's and its bound, and at N=14 each of its two harmonic-range
+   passes timed alone; then
    phase ``kfac_gram``: KFAC's Gram-product kernel at the 16-determinant
    head's G (33,600 x 4,480) and at an N = 6 layer's A with its bias
    (20,160 x 256 and the ones column): exactly symmetric, within 2e-5 of the
@@ -165,7 +167,7 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
    with the heads of an item and the stages of its ring the library chose)
    against its plain version (2e-5) at B = 3360, D = 256, H = 4 and
    (N, C, E) = (8, 19, 3), (10, 21, 1), (10, 23, 3), (12, 25, 1), (12, 27, 3),
-   (16, 35, 3), with each one's time, its plain version's and its bound; the
+   (14, 31, 3), (16, 35, 3), with each one's time, its plain version's and its bound; the
    LayerNorm beside a plain pass over the same bytes and the generic kernel
    on the same inputs (in turns: staged, generic, generic, staged), and the
    launch counters must show that the staged and the streamed kernels took
@@ -277,7 +279,8 @@ TRACE_ITERATIONS = 3
 TOOLS_BLOCK = 10
 # Phase large_n: the jet's kernels at the JAX package's larger systems, (N, C,
 # E) with C = 2N + E (BASELINE.md: nu = 2/5 at N = 8, nu = 1/3 at N = 10, nu
-# = 3/7 at N = 12; N = 16 is the largest the port states for every kernel);
+# = 3/7 at N = 12, nu = 1/5 at N = 14; N = 16 is the largest the port states
+# for every kernel);
 # the N = 10 production state (14.27791 +- 0.00006 over its last iterations,
 # its KfacState at step 27730); and a fresh N = 12, 2Q = 23 block.  The
 # trained N = 10 state is not the exact L = 0 ground state: its L^2 is 0.479
@@ -286,7 +289,8 @@ TOOLS_BLOCK = 10
 # H100; 0.12 an iteration, so 0.05 for a mean of 5).  The mean over 5
 # iterations is held below 1, half of a pure L = 1 state's L(L + 1) = 2; a
 # broken L^2 jet gives O(10-1000).
-LARGE_N_SHAPES = ((8, 19, 3), (10, 21, 1), (10, 23, 3), (12, 25, 1), (12, 27, 3), (16, 35, 3))
+LARGE_N_SHAPES = ((8, 19, 3), (10, 21, 1), (10, 23, 3), (12, 25, 1), (12, 27, 3), (14, 31, 3),
+                  (16, 35, 3))
 N10 = REPO / "artifacts/prod_n10_r5"
 N10_CKPT = N10 / "ckpt_027729.npz"
 N10_ENERGY, N10_TOL, N10_KFAC_TOL, N10_L2_MAX = 14.27791, 0.01, 0.02, 1.0
@@ -595,9 +599,11 @@ def phase_kernels(device, rates) -> dict:
 
 
 # Phase orbital_head: (name, N, 2Q, determinants, E) of the benchmark's
-# configurations and jet modes, at batch 3360 and D = 256.
+# configurations and jet modes, at batch 3360 and D = 256; at N = 14, 2Q = 65
+# the 66 harmonics take two harmonic-range passes, each also timed alone.
 ORBITAL_SHAPES = (("N6C15E3", 6, 15, 1, 3), ("N6C13E1", 6, 15, 1, 1),
-                  ("N10C21E1", 10, 27, 1, 1), ("N10C21E1K16", 10, 27, 16, 1))
+                  ("N10C21E1", 10, 27, 1, 1), ("N10C21E1K16", 10, 27, 16, 1),
+                  ("N14C31E3", 14, 65, 1, 3), ("N14C29E1", 14, 65, 1, 1))
 
 
 def orbital_head_rows(device, rates, nelec: int, flux: int, ndet: int, e: int) -> dict:
@@ -640,9 +646,17 @@ def orbital_head_rows(device, rates, nelec: int, flux: int, ndet: int, e: int) -
     nbytes = (rows * FEAT * 4 + (c + e + 2) * BATCH * nelec * harmonics * 8
               + planes * BATCH * pairs * nelec * 8)
     least = bound(nbytes, contraction_flops, rates, product_flops)
-    plan = oh.column_plan(harmonics, pairs)
+    ranges = oh.harmonic_ranges(harmonics)
+    passes = []
+    for f0, f1 in ranges:  # each pass alone: one launch on the range's head and envelope
+        part = {k: oh.harmonic_slice(v, f0, f1) for k, v in p.items()}
+        part_env = Jet(*(v[..., f0:f1].contiguous() for v in env))
+        passes.append(dict(harmonics=[f0, f1], plan=oh.column_plan(f1 - f0, pairs)._asdict(),
+                           ms=cuda_ms(lambda part=part, part_env=part_env: oh.orbital_matrices_jet(
+                               part, h, part_env, spins))))
+        del part_env
     row = against(dict(
-        **err, plan=plan._asdict(),
+        **err, plan=passes[0]["plan"], passes=passes if len(ranges) > 1 else None,
         ms=cuda_ms(lambda: oh.orbital_matrices_jet(p, h, env, spins)),
         plain_ms=cuda_ms(lambda: oh.orbital_matrices_plain(p, h, env, spins), reps=3),
         bound_ms=least[0], bound_by=least[1],
@@ -652,7 +666,7 @@ def orbital_head_rows(device, rates, nelec: int, flux: int, ndet: int, e: int) -
 
 
 def phase_orbital_head(device, rates) -> dict:
-    """The orbital head's kernel at the benchmark's three configurations: its
+    """The orbital head's kernel at the benchmark's four configurations: its
     rows, keyed by shape."""
     results = {}
     for name, nelec, flux, ndet, e in ORBITAL_SHAPES:
@@ -2703,7 +2717,7 @@ def main() -> int:
                       launches=large_counts["jet_softmax_values"] - large_counts["jet_softmax_values_tiled"],
                       **table_numbers(streamed)))
     # The orbital head's kernel (no TPU kernel: the JAX package leaves the head
-    # to XLA): its rows at the three configurations, its launches in phase large_n.
+    # to XLA): its rows at the four configurations, its launches in phase large_n.
     table.append(dict(name="orbital_head_jet", route="cuda",
                       source="deephall_tpu_torch/csrc/orbital_head.cu",
                       replaces="deephall_tpu/networks/fwdlap.py:psiformer_logpsi_jet's orbital head (XLA)",

@@ -33,7 +33,8 @@ their matrices are added: every term is a sum over the harmonics.  CPU
 tensors take :func:`orbital_matrices_plain`, the same sums in the same order,
 plane by plane.  Each call on the card is counted in
 ``orbital_matrices_jet.launches`` and as ``orbitals.fused`` in the open block
-record (:func:`deephall_tpu_torch.tracing.count`).
+record (:func:`deephall_tpu_torch.tracing.count`), and each harmonic range's
+launch as ``orbitals.range``: one a call where the harmonics fit a tile.
 """
 
 from __future__ import annotations
@@ -326,6 +327,7 @@ def orbital_matrices_jet(p: dict, h: Jet, env: Jet, nspins) -> Jet:
             part = torch.empty_like(out)
         _launch(columns[index], stacked, Jet(*(v[..., f0:f1].contiguous() for v in env)),
                 c, e, part, side)
+        tracing.count("orbitals.range")
         if index:
             out += part
     del part

@@ -29,7 +29,10 @@ start to the next one's (``None`` until a next block starts).
 
 ``count(name)`` counts an event in the open block record, such as how each
 sweep ran (``sweep.replayed``, ``sweep.captured``, ``sweep.eager``;
-``mcmc.GraphedSweep``); each record returns its counts as ``counts``.
+``mcmc.GraphedSweep``), the orbital head's kernel calls and their harmonic
+ranges (``orbitals.fused``, ``orbitals.range``; ``ops/orbital_head.py``) and
+KFAC's factors (``kfac.factors``, ``kfac.gram``); each record returns its
+counts as ``counts``.
 """
 
 from __future__ import annotations

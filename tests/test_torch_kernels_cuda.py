@@ -81,6 +81,7 @@ def run_layernorm(p, x, r, kernel, fn=jet_layernorm.layernorm_jet):
     (13, 1, 6, 256), (15, 3, 6, 256), (17, 1, 8, 64), (5, 2, 3, 512),
     (19, 3, 8, 256), (21, 1, 10, 256), (23, 3, 10, 256), (25, 1, 12, 256), (27, 3, 12, 256),
     (35, 3, 16, 256), (35, 3, 4, 512), (17, 1, 8, 256), (64, 4, 4, 256), (64, 4, 2, 1024),
+    (31, 3, 14, 256),
 ])
 def test_layernorm_kernel(device, c, e, t, feat, residual):
     gen = torch.Generator(device=device).manual_seed(c + feat)
@@ -101,9 +102,10 @@ def test_layernorm_kernel_production_rows(device, c, e):
 
 
 # The staged kernel at the row count of a batch of 3360 walkers of 10 tokens,
-# every shape beyond N = 6 that it takes (N = 8, 10, 12, 16, and C = 64).
+# every shape beyond N = 6 that it takes (N = 8, 10, 12, 14, 16, and C = 64).
 @pytest.mark.parametrize("residual", [False, True])
-@pytest.mark.parametrize("c,e", [(17, 1), (19, 3), (21, 1), (23, 3), (27, 3), (35, 3), (64, 4)])
+@pytest.mark.parametrize("c,e", [(17, 1), (19, 3), (21, 1), (23, 3), (27, 3), (35, 3), (64, 4),
+                                 (31, 3)])
 def test_staged_kernel_production_rows(device, c, e, residual):
     gen = torch.Generator(device=device).manual_seed(100 + c)
     x = random_jet(gen, device, 3360, 10, 256, c, e)
@@ -234,6 +236,7 @@ def test_unaligned_jet_takes_the_generic_kernel(device):
 @pytest.mark.parametrize("c,e,t,feat,heads", [
     (13, 1, 6, 256, 4), (15, 3, 6, 256, 4), (17, 1, 8, 64, 4),
     (19, 3, 8, 256, 4), (23, 3, 10, 256, 4), (27, 3, 12, 256, 4), (35, 3, 16, 256, 4),
+    (31, 3, 14, 256, 4),
 ])
 def test_attention_kernels(device, c, e, t, feat, heads):
     gen = torch.Generator(device=device).manual_seed(c + t)
@@ -297,7 +300,7 @@ def test_gemm_kernels(device, m, k, n, tensor_cores):
     (25, 1, 12, 64, 4, 33, False), (27, 3, 12, 64, 4, 33, False), (35, 3, 16, 64, 4, 33, False),
     (2, 2, 3, 8, 2, 5, False), (17, 1, 8, 64, 4, 33, False), (45, 3, 21, 64, 4, 33, False),
     (53, 3, 25, 64, 4, 9, False), (51, 1, 25, 64, 4, 9, False), (23, 3, 10, 64, 4, 37, False),
-    (21, 1, 10, 64, 4, 3360, False), (5, 1, 5, 6, 2, 9, False),
+    (21, 1, 10, 64, 4, 3360, False), (5, 1, 5, 6, 2, 9, False), (31, 3, 14, 64, 4, 33, False),
 ])
 def test_softmax_values_kernels(device, c, e, t, dh, heads, batch, tiled):
     gen = torch.Generator(device=device).manual_seed(c + batch)

@@ -16,12 +16,14 @@ takes ``orbital_matrices_jet``, ``kernels=False`` the plain version, for
 full and sparse orbitals, each the materialised head.
 
 On a card (marked ``cuda``, skipped elsewhere): the kernel against its plain
-version in float64 at the three configurations' shapes and batch 3360, and
-with composed sparse heads; ``psiformer_logpsi_jet`` with the kernel's head
-and with the plain version's, both against float64, at the 16-determinant
-shape; at 65 and 131 harmonics, more than a column tile holds, the kernel
-in harmonic ranges, alone and inside ``psiformer_logpsi_jet``; the launch
-count and ``orbitals.fused`` of one local energy.  Run them on the card with
+version in float64 at the four configurations' shapes and batch 3360 (N=14
+at 2Q=65 in two harmonic ranges, through the epilogue's runtime-stride
+loop), and with composed sparse heads; ``psiformer_logpsi_jet`` with the
+kernel's head and with the plain version's, both against float64, at the
+16-determinant shape and at N=14, 2Q=65; at 65 and 131 harmonics, more than
+a column tile holds, the kernel in harmonic ranges, alone and inside
+``psiformer_logpsi_jet``; the launch count, ``orbitals.fused`` and
+``orbitals.range`` of one local energy.  Run them on the card with
 
     python -m pytest tests/test_torch_orbital_head.py -m cuda --noconftest
 """
@@ -357,8 +359,10 @@ def device():
     return torch.device("cuda")
 
 
-# (N, 2Q, determinants, extras) of the benchmark's configurations and jet modes.
-CARD_SHAPES = [(6, 15, 1, 3), (6, 15, 1, 1), (10, 27, 1, 1), (10, 27, 16, 1)]
+# (N, 2Q, determinants, extras) of the benchmark's configurations and jet
+# modes; N=14 at 2Q=65 takes two harmonic ranges.
+CARD_SHAPES = [(6, 15, 1, 3), (6, 15, 1, 1), (10, 27, 1, 1), (10, 27, 16, 1), (14, 65, 1, 3),
+               (14, 65, 1, 1)]
 
 
 @pytest.mark.cuda
@@ -433,8 +437,8 @@ def test_more_harmonics_than_a_tile_holds(device):
     """N=3 at 2Q=64: 65 harmonics, more than a column tile holds, inside
     ``psiformer_logpsi_jet`` through every other kernel: the head takes the
     kernel in two harmonic ranges, one wrapper call counted as
-    ``orbitals.fused``, and log psi's jet lies within :data:`CARD_TO_CPU_TOL`
-    of the same model's on the CPU."""
+    ``orbitals.fused`` and two launches as ``orbitals.range``, and log psi's
+    jet lies within :data:`CARD_TO_CPU_TOL` of the same model's on the CPU."""
     raw = {"batch_size": 64, "system": {"nspins": [3, 0], "flux": 64},
            "network": {"psiformer": {"num_layers": 1}}}
     cfg = config.Config.from_dict(raw)
@@ -451,6 +455,7 @@ def test_more_harmonics_than_a_tile_holds(device):
             got = network_jet.psiformer_logpsi_jet(card, data.to(device), compute_l2=True)
     assert orbital_head.orbital_matrices_jet.launches == before + 1
     assert tracing.blocks()[-1].counts.get("orbitals.fused") == 1
+    assert tracing.blocks()[-1].counts.get("orbitals.range") == 2
     errors = relative_errors(Jet(*(v.cpu() for v in got)), want)
     assert max(errors.values()) <= CARD_TO_CPU_TOL, errors
 
@@ -503,5 +508,47 @@ def test_one_launch_and_one_count_a_local_energy(device, ndet):
     with torch.no_grad(), tracing.block(1, device):
         energy, _ = e_l(data)
     assert orbital_head.orbital_matrices_jet.launches == before + 1
-    assert tracing.blocks()[-1].counts == {"orbitals.fused": 1}
+    assert tracing.blocks()[-1].counts == {"orbitals.fused": 1, "orbitals.range": 1}
     assert torch.isfinite(energy).all()
+
+
+def nu_one_fifth(device, batch: int):
+    """The nu=1/5 configuration's model at N=14, 2Q=65 (fresh weights, seed
+    23) and walkers, 14 of them within 1e-3 of a pole."""
+    raw = {"batch_size": batch, "system": {"nspins": [14, 0], "flux": 65}}
+    cfg = config.Config.from_dict(raw)
+    model = make_network(cfg.system, cfg.network)
+    init_params(model, torch.Generator().manual_seed(23))
+    gen = torch.Generator().manual_seed(24)
+    theta = torch.acos(2 * torch.rand(batch, 14, generator=gen) - 1)
+    theta[:7, 0] = torch.linspace(1e-4, 1e-3, 7)
+    theta[7:14, 0] = math.pi - torch.linspace(1e-4, 1e-3, 7)
+    data = torch.stack([theta, 2 * math.pi * torch.rand(batch, 14, generator=gen)], dim=-1)
+    return cfg, model.to(device), data.to(device)
+
+
+@pytest.mark.cuda
+def test_the_nu_one_fifth_system_through_the_kernels(device, monkeypatch):
+    """N=14 at 2Q=65, batch 336, L^2 jet: log psi's jet through every kernel
+    (the head in two harmonic-range passes through the epilogue's
+    runtime-stride loop, the T=14 attention and LayerNorm) and with the
+    plain version's head in float32, both against ``kernels=False`` in
+    float64, as :func:`test_log_psi_jet_through_the_kernel`; a local energy
+    counts one ``orbitals.fused`` and two ``orbitals.range``."""
+    cfg, model, data = nu_one_fifth(device, 336)
+    with torch.no_grad():
+        want = network_jet.psiformer_logpsi_jet(copy.deepcopy(model).double(), data.double(),
+                                                compute_l2=True, kernels=False)
+        got = network_jet.psiformer_logpsi_jet(model, data, compute_l2=True, kernels=True)
+        e_l = hamiltonian.forward_laplacian_local_energy(model, cfg.system)
+        with tracing.block(1, device):
+            energy, _ = e_l(data)
+        monkeypatch.setattr(orbital_head, "orbital_matrices_jet",
+                            orbital_head.orbital_matrices_plain)
+        plain = network_jet.psiformer_logpsi_jet(model, data, compute_l2=True, kernels=True)
+    assert tracing.blocks()[-1].counts == {"orbitals.fused": 1, "orbitals.range": 2}
+    assert torch.isfinite(energy).all()
+    kernel_errors, plain_errors = relative_errors(got, want), relative_errors(plain, want)
+    for name in Jet._fields:
+        assert kernel_errors[name] <= END_TO_END_FACTOR * plain_errors[name], (
+            kernel_errors, plain_errors)
